@@ -1,22 +1,34 @@
 #!/usr/bin/env python3
-"""How far apart chip_smoke.py's checks put a correct paged-attention kernel
-and a broken one, on one CUDA card.
+"""How far apart chip_smoke.py's checks put a correct kernel and a broken
+one, on one CUDA card.
 
-Each mutant is the kernels' shared core (``paged_common.cuh``) with one
-edit. The script copies the checkout's sources into a temporary directory,
-applies the edit there (the repository's sources are not touched), builds
-both kernels from the copy with the same nvcc flags, and swaps them in for
+Each mutant is one kernel source with one edit. The script copies the
+checkout's sources into a temporary directory, applies the edit there (the
+repository's sources are not touched), builds the kernels that include the
+edited file from the copy with the same nvcc flags, and swaps them in for
 the real ones. For the correct kernels and each mutant it prints one JSON
-line with the readings of chip_smoke.py's three checks:
+line with the readings of chip_smoke.py's checks of the mutant's path.
 
-- ``kernel_bf16``: max abs error of each kernel against its plain version at
-  the 8B shapes of chip_smoke.py, bf16 (limit 2e-2);
+Serving mutants (``paged_common.cuh``):
+- ``kernel_bf16``: max abs error of each paged kernel against its plain
+  version at the 8B shapes of chip_smoke.py, bf16 (limit 2e-2);
 - ``replay_bf16``: the captured mixed step of Llama-3-8B (32 layers, random
   bf16 weights) through the kernels vs the plain path: relative Frobenius
   error of the logits (limit 5e-2) and top-1 agreement;
 - ``replay_fp32``: the same on the 2-layer full-width model in fp32: max abs
   error (limit 1e-3), and whether greedy tokens of 8 short requests equal
   those through the plain path.
+
+Training mutants (``flash_fwd.cu``, ``flash_bwd.cu``; the two ``_mma_``
+ones edit code only the bf16 tensor-core kernels run):
+- ``flash_bf16``: each flash kernel against its plain version at the
+  training cell's shapes, bf16: the relative Frobenius error of o, dq, dk
+  and dv (limit 5e-3), the max abs error of lse (limit 1e-4) and whether
+  the kernel passes;
+- ``train_parity``: chip_smoke.py's train parity readings: fp32 at 2 layers
+  (loss abs error, limit 1e-3; largest per-leaf relative Frobenius error of
+  the gradients, limit 1e-3; 4-step trajectory abs error, limit 1e-3) and
+  bf16 at 4 layers (gradients, limit 5e-2).
 
 Run from the repository root:
 
@@ -39,27 +51,49 @@ from pathlib import Path
 
 import chip_smoke as smoke
 
-# name -> (text of paged_common.cuh, its replacement)
+# name -> (source file, its text, the replacement)
 MUTANTS = {
     # a key is visible only strictly before the query: drops the diagonal
-    "mask_off_by_one": ("kpos0 + kk <= qpos[i]", "kpos0 + kk < qpos[i]"),
+    "mask_off_by_one": ("paged_common.cuh", "kpos0 + kk <= qpos[i]", "kpos0 + kk < qpos[i]"),
     # the softmax scale one bf16 ulp (2^-7) too large
-    "scale_one_bf16_ulp": ("* scale : 0.f", "* (scale * 1.0078125f) : 0.f"),
+    "scale_one_bf16_ulp": ("paged_common.cuh", "* scale : 0.f",
+                           "* (scale * 1.0078125f) : 0.f"),
     # probabilities rounded to bf16 before P @ V
-    "probs_rounded_to_bf16": ("pw[i * bs + kk] = e;",
+    "probs_rounded_to_bf16": ("paged_common.cuh", "pw[i * bs + kk] = e;",
                               "pw[i * bs + kk] = __bfloat162float(__float2bfloat16(e));"),
+    # the flash forward's causal mask off by one: the diagonal is hidden too
+    "flash_fwd_mask_off_by_one": ("flash_fwd.cu", "(causal && kpos > qpos)",
+                                  "(causal && kpos >= qpos)"),
+    # delta = rowsum(dO * O) dropped from ds in the dQ kernel
+    "flash_dq_delta_dropped": ("flash_bwd.cu", "return p * (dp - delta) * scale;",
+                               "return p * dp * scale;"),
+    # tensor-core (bf16) kernels only: the forward's softmax scale one bf16
+    # ulp too large
+    "flash_fwd_mma_scale_one_bf16_ulp": (
+        "flash_fwd.cu", "dstpu::kNegInf : s[n][e] * scale;",
+        "dstpu::kNegInf : s[n][e] * (scale * 1.0078125f);"),
+    # tensor-core (bf16) kernels only: the dK/dV kernel's ds one bf16 ulp too
+    # large, so dK is 2^-7 too large
+    "flash_dkdv_mma_ds_one_bf16_ulp": (
+        "flash_bwd.cu", "dp[n][e] = s[n][e] * (dp[n][e] - delta_s[qr]) * scale;",
+        "dp[n][e] = s[n][e] * (dp[n][e] - delta_s[qr]) * (scale * 1.0078125f);"),
 }
+# the kernels each source is compiled into
+BUILT_FROM = {"paged_common.cuh": ("paged_decode", "paged_prefill"),
+              "flash_fwd.cu": ("flash_fwd",), "flash_bwd.cu": ("flash_bwd",)}
+SERVING = [m for m, (src, _, _) in MUTANTS.items() if src == "paged_common.cuh"]
+TRAINING = [m for m in MUTANTS if m not in SERVING]
 
 
-def mutant_sources(build, tag: str, old: str, new: str) -> Path:
+def mutant_sources(build, tag: str, src: str, old: str, new: str) -> Path:
     out = Path(tempfile.mkdtemp(prefix=f"dstpu-mutant-{tag}-"))
-    for src in build.CSRC.glob("*.cu*"):
-        shutil.copy(src, out / src.name)
-    header = out / "paged_common.cuh"
-    text = header.read_text()
+    for f in build.CSRC.glob("*.cu*"):
+        shutil.copy(f, out / f.name)
+    path = out / src
+    text = path.read_text()
     if text.count(old) != 1:
-        raise AssertionError(f"mutant {tag}: {old!r} is not once in paged_common.cuh")
-    header.write_text(text.replace(old, new))
+        raise AssertionError(f"mutant {tag}: {old!r} is not once in {src}")
+    path.write_text(text.replace(old, new))
     return out
 
 
@@ -73,16 +107,20 @@ def nvcc(build, srcdir: Path, name: str) -> Path:
 
 
 def build_variants(build) -> tuple[dict[str, dict[str, ctypes.CDLL]], list[Path]]:
-    """Every variant's two libraries, built at once (one nvcc per source)."""
+    """Every variant's libraries, built at once (one nvcc per source): the
+    correct kernels, and for each mutant the kernels its edited file is
+    compiled into, over the correct ones."""
     dirs = {tag: mutant_sources(build, tag, *edit) for tag, edit in MUTANTS.items()}
-    with ThreadPoolExecutor(max_workers=2 * (len(dirs) + 1)) as ex:
+    with ThreadPoolExecutor(max_workers=2 * len(dirs) + len(build.KERNELS)) as ex:
         jobs = {("correct", n): ex.submit(build.build, n) for n in build.KERNELS}
         jobs.update({(tag, n): ex.submit(nvcc, build, d, n)
-                     for tag, d in dirs.items() for n in build.KERNELS})
+                     for tag, d in dirs.items() for n in BUILT_FROM[MUTANTS[tag][0]]})
         paths = {key: f.result() for key, f in jobs.items()}
     libs: dict[str, dict[str, ctypes.CDLL]] = {}
     for (tag, name), path in paths.items():
         libs.setdefault(tag, {})[name] = ctypes.CDLL(str(path))
+    for tag in MUTANTS:
+        libs[tag] = {**libs["correct"], **libs[tag]}
     return libs, list(dirs.values())
 
 
@@ -117,7 +155,9 @@ def main() -> int:
     from deepspeed_tpu_torch.inference import ragged
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
 
     print(smoke.nvidia_smi("name", "power.limit"), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,7 +165,8 @@ def main() -> int:
     libs, tmpdirs = build_variants(_build)
     try:
         rows = {tag: {"variant": tag} for tag in libs}
-        for tag in libs:
+        serving, training = ["correct", *SERVING], ["correct", *TRAINING]
+        for tag in serving:
             use(_build, libs[tag])
             rows[tag]["kernel_bf16"] = kernel_errors(torch, np, pa)
 
@@ -140,7 +181,7 @@ def main() -> int:
         cap.restore()
         if cap.saved is None:
             raise AssertionError("no step mixed decodes with prefill tiles")
-        for tag in libs:
+        for tag in serving:
             use(_build, libs[tag])
             res = smoke.replay(torch, llama, cfg, eng.params, cap.saved, rcfg.max_seqs)
             rows[tag]["replay_bf16"] = {k: res[k] for k in ("rel_frobenius_err",
@@ -172,12 +213,26 @@ def main() -> int:
         del eng, cap
         if saved is None:
             raise AssertionError("no step mixed decodes with prefill tiles")
-        for tag in libs:
+        for tag in serving:
             use(_build, libs[tag])
             res = smoke.replay(torch, llama, cfg, params, saved, rcfg.max_seqs)
             tokens = smoke.run(engine("auto"), prompts, 8)
             rows[tag]["replay_fp32"] = {"max_abs_err": res["max_abs_err"],
                                         "greedy_tokens_identical": tokens == plain_tokens}
+        del params
+        torch.cuda.empty_cache()
+
+        # training: the flash kernels at the cell's shapes, then train parity
+        for tag in training:
+            use(_build, libs[tag])
+            rows[tag]["flash_bf16"] = {
+                name: {k: r[k] for k in ("rel_fro", "lse_abs_err", "ok") if k in r}
+                for name, r in smoke.flash_check(torch, fa, torch.bfloat16).items()}
+            parity = smoke.train_parity(torch, np, llama, engine_mod)
+            rows[tag]["train_parity"] = {
+                "fp32": {k: parity["fp32"][k] for k in ("loss_abs_err", "max_rel_frobenius_err",
+                                                        "trajectory_max_abs_err")},
+                "bf16": {"max_rel_frobenius_err": parity["bf16"]["max_rel_frobenius_err"]}}
         for row in rows.values():
             print(json.dumps(row), flush=True)
     finally:

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``deepspeed_tpu_torch``) on one CUDA card.
 
-The port's main path is the ragged serving engine over Llama-3-8B at full
-width and full depth, with random bf16 weights from a seed. In order:
+The port has two main paths, each driven at full width with random weights
+from a seed: the ragged serving engine over Llama-3-8B (full depth, bf16),
+and the training engine over Llama-3-8B's widths cut to 4 layers (bf16
+compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
 
 1. device: the card, its power limit, torch and CUDA versions;
-2. build: both paged-attention kernels from ``deepspeed_tpu_torch/ops/cuda/
-   csrc`` with nvcc (one process per source, in parallel), with ptxas'
-   registers, shared memory and spills;
-3. kernels: each kernel against its plain PyTorch version at the 8B shapes,
-   in bf16 and fp32, then timed beside its bound, its plain version and a
-   library yardstick (SDPA on pre-gathered K/V, which the port never calls);
+2. build: every kernel source in ``deepspeed_tpu_torch/ops/cuda/csrc`` with
+   nvcc (one process per source, in parallel), with ptxas' registers,
+   shared memory and spills;
+3. kernels: each paged-attention kernel against its plain PyTorch version
+   at the 8B serving shapes, and each flash-attention kernel (forward,
+   dK/dV, dQ) at the training shapes (B=2, S=4096, Hq=32, Hkv=8, D=128,
+   causal), in bf16 and fp32; then timed beside its bound, its plain
+   version and a library yardstick (SDPA, which the port never calls);
 4. engine: 32 requests x 48 greedy tokens through ``put()`` and
    ``generate_all()``, run twice on one engine, the second run reported,
    with the kernels' launch counts taken over that run alone; then a third
@@ -18,7 +22,16 @@ width and full depth, with random bf16 weights from a seed. In order:
 5. parity: a mixed decode + prefill-tile step replayed through the kernels
    and through the plain attention path (bf16, 32 layers), and the same in
    fp32 on a 2-layer full-width model together with greedy tokens of a short
-   run through both paths.
+   run through both paths;
+6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
+   warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
+   flash kernels' launch counts per step, tokens/s, MFU and peak memory;
+   one step under ``torch.profiler``; then 8 steps on one repeated batch,
+   whose loss must fall;
+7. train parity: loss, every gradient and a 4-step loss trajectory through
+   the kernels vs through the plain attention path in fp32 (2 layers,
+   full width, B=1, S=2048), and the gradients' relative error in bf16 at
+   4 layers.
 
 Each phase prints one JSON line. The script ends with a ``{"kernels": ...}``
 line and, as its last line, ``{"ok": true, "device": {...}}``; any failure
@@ -40,7 +53,7 @@ import traceback
 from functools import partial
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-BF16_FLOPS_PER_S = 989e12   # H100 SXM, dense bf16 tensor cores
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense bf16 tensor cores
 
 # RaggedConfig of bench.py's serve_trial_main accelerator branch (bench.py:281-289)
 ENGINE = dict(max_tokens_per_step=1024, max_seqs=32, block_size=32,
@@ -49,6 +62,23 @@ N_REQ, MAX_NEW, PROMPT_LENS = 32, 48, (64, 128, 256, 512)
 # 8B attention shapes
 HQ, HKV, D, BS, MB, NB = 32, 8, 128, 32, 18, 577
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# bf16 flash checks: the fp32 lse to 1e-4, and the outputs to a relative
+# Frobenius error between a correct kernel's rounding (p and ds rounded to
+# bf16 before their products) and the control, the plain version with the
+# softmax scale one bf16 ulp (2^-7) too large
+FLASH_LSE_ATOL, FLASH_BF16_REL_FRO, FLASH_CONTROL_SCALE = 1e-4, 5e-3, 1 + 2 ** -7
+# training cell: bench.py:trial_main's config on Llama-3-8B widths at 4 layers
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 4096
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_device": TRAIN_BATCH, "gradient_accumulation_steps": 1,
+    "steps_per_print": 0, "gradient_clipping": 1.0, "sequence_length": TRAIN_SEQ,
+    "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+    "zero_optimization": {"stage": 0}, "mesh": {"data": -1},
+    "activation_checkpointing": {"enabled": True, "policy": "dots_saveable"},
+}
+WARMUP_STEPS, TIMED_STEPS = 2, 8
+# flash-attention kernels at the training cell's attention shapes
+FB, FS, FD = TRAIN_BATCH, TRAIN_SEQ, D
 
 
 def emit(phase: str, **fields) -> None:
@@ -284,6 +314,167 @@ def kernel_phase(torch, np, pa):
     return results
 
 
+# ----------------------------------------------------------- flash kernels
+def flash_inputs(torch, dtype, seed=0):
+    """q, k, v, dO of the training cell's attention, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(h):
+        return torch.randn((FB, FS, h, FD), generator=g, device="cuda").to(dtype)
+
+    return draw(HQ), draw(HKV), draw(HKV), draw(HQ)
+
+
+def flash_work(dtype_bytes: int):
+    """(bytes, flops) of each flash kernel at the cell's shapes, causal: the
+    (query, key) pairs it must visit are S (S + 1) / 2 per batch and head;
+    2 flops per pair and head dim for each product (forward: s and p v;
+    dK/dV: s, dp, dv, dk; dQ: s, dp, dq); each input read once, each output
+    written once (lse and delta fp32)."""
+    pairs = FB * HQ * FS * (FS + 1) // 2
+    q = FB * FS * HQ * FD * dtype_bytes   # also o, dO, dq
+    kv = FB * FS * HKV * FD * dtype_bytes  # each of k, v, dk, dv
+    rows = FB * HQ * FS * 4                # lse or delta
+    return {"flash_fwd": (q + 2 * kv + q + rows, 4 * FD * pairs),
+            "flash_dkdv": (2 * q + 2 * kv + 2 * rows + 2 * kv, 8 * FD * pairs),
+            "flash_dq": (2 * q + 2 * kv + 2 * rows + q, 6 * FD * pairs)}
+
+
+def within(torch, got, want, tol) -> bool:
+    """|got - want| <= tol (1 + |want|) everywhere (torch.allclose with
+    atol = rtol = tol): the fp32 check, where only summation order differs."""
+    return bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+
+
+def rel_fro(got, want) -> float:
+    """||got - want||_F / ||want||_F."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def flash_check(torch, fa, dtype) -> dict:
+    """Each flash kernel against its plain version on the same inputs at the
+    training cell's shapes; the backward kernels get the plain forward's o
+    and lse, so only they differ. Per kernel: max abs error and whether it
+    passes. fp32: |got - want| <= 1e-4 (1 + |want|) for every output. bf16:
+    lse (fp32 in both) within FLASH_LSE_ATOL, and o, dq, dk, dv each within
+    FLASH_BF16_REL_FRO relative Frobenius error; beside it the control: the
+    plain version with the softmax scale one bf16 ulp too large, which
+    must lie beyond the limit, so the limit is shown to tell such a fault
+    from rounding."""
+    q, k, v, do = flash_inputs(torch, dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, True)
+    dq_ref, dk_ref, dv_ref = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True)
+    torch.cuda.synchronize()
+    outs = {"flash_fwd": {"o": (o, o_ref)},
+            "flash_dkdv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)},
+            "flash_dq": {"dq": (dq, dq_ref)}}
+    res = {name: {"max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                     for a, b in pairs.values())}
+           for name, pairs in outs.items()}
+    lse_err = (lse - lse_ref).abs().max().item()
+    res["flash_fwd"]["max_abs_err"] = max(res["flash_fwd"]["max_abs_err"], lse_err)
+    if dtype == torch.float32:
+        tol = TOL["float32"]
+        res["flash_fwd"]["ok"] = within(torch, o, o_ref, tol) and within(torch, lse, lse_ref, tol)
+        for name in ("flash_dkdv", "flash_dq"):
+            res[name]["ok"] = all(within(torch, a, b, tol) for a, b in outs[name].values())
+    else:
+        scale = FLASH_CONTROL_SCALE / FD ** 0.5
+        o_c, _ = fa.flash_attention_fwd_ref(q, k, v, True, scale)
+        dq_c, dk_c, dv_c = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True, scale)
+        control = {"o": o_c, "dq": dq_c, "dk": dk_c, "dv": dv_c}
+        for name, pairs in outs.items():
+            r = res[name]
+            r["rel_fro"] = {n: rel_fro(a, b) for n, (a, b) in pairs.items()}
+            r["control_rel_fro"] = {n: rel_fro(control[n], b) for n, (_, b) in pairs.items()}
+            r["max_err_over_rms"] = {
+                n: ((a.float() - b.float()).abs().max() / b.float().pow(2).mean().sqrt()).item()
+                for n, (a, b) in pairs.items()}
+            r["ok"] = max(r["rel_fro"].values()) <= FLASH_BF16_REL_FRO  # False on a NaN
+        res["flash_fwd"]["lse_abs_err"] = lse_err
+        res["flash_fwd"]["ok"] = res["flash_fwd"]["ok"] and lse_err <= FLASH_LSE_ATOL
+        del o_c, dq_c, dk_c, dv_c, control
+    del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_kernel_phase(torch, fa):
+    """Each flash kernel against its plain version, in fp32 and bf16, at the
+    training cell's shapes; then times in bf16 beside bounds, the plain
+    versions and SDPA."""
+    flush = L2Flush(torch)
+    errs: dict = {}
+    limits = {"float32": "|got-want| <= 1e-4 (1+|want|), o, lse, dq, dk, dv",
+              "bfloat16": f"lse |got-want| <= {FLASH_LSE_ATOL}; o, dq, dk, dv "
+                          f"||got-want||_F / ||want||_F <= {FLASH_BF16_REL_FRO}"}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for name, r in flash_check(torch, fa, dtype).items():
+            errs.setdefault(name, {})[dname] = r
+            emit("kernel_check", kernel=name, dtype=dname, shape=[FB, FS, HQ, HKV, FD],
+                 causal=True, check=limits[dname], **r)
+            if not r["ok"]:
+                raise AssertionError(f"{name} {dname}: outside {limits[dname]}: {r}")
+            if dname == "bfloat16" and not min(r["control_rel_fro"].values()) > \
+                    FLASH_BF16_REL_FRO:
+                raise AssertionError(f"{name}: the control (softmax scale one bf16 ulp off) "
+                                     f"is within the limit {FLASH_BF16_REL_FRO}: {r}")
+
+    # timing at the main path's type (bf16)
+    q, k, v, do = flash_inputs(torch, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    times = {
+        "flash_fwd": cuda_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, True), flush),
+        "flash_dkdv": cuda_ms(torch, lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta,
+                                                                    True), flush),
+        "flash_dq": cuda_ms(torch, lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, True),
+                            flush),
+    }
+    plain_fwd = cuda_ms(torch, lambda: fa.flash_attention_fwd_ref(q, k, v, True), flush,
+                        iters=5, warmup=1)
+    # the plain backward computes dq, dk and dv together
+    plain_bwd = cuda_ms(torch, lambda: fa.flash_attention_bwd_ref(q, k, v, o, lse, do, True),
+                        flush, iters=5, warmup=1)
+    # SDPA in its own [B, H, S, D] layout; its backward (dq, dk, dv together)
+    # through autograd
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    sdo = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(sq, sk, sv, is_causal=True,
+                                                                enable_gqa=True)
+
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(torch, sdpa, flush)
+    so = sdpa()
+    sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(so, (sq, sk, sv), sdo,
+                                                          retain_graph=True), flush)
+    plain = {"flash_fwd": plain_fwd, "flash_dkdv": plain_bwd, "flash_dq": plain_bwd}
+    library = {"flash_fwd": sdpa_fwd, "flash_dkdv": sdpa_bwd, "flash_dq": sdpa_bwd}
+    results = {}
+    for name, (nbytes, flops) in flash_work(2).items():
+        bound_ms, bound_by = bound(nbytes, flops)
+        bf = errs[name]["bfloat16"]
+        results[name] = dict(max_abs_err=bf["max_abs_err"], rel_fro=max(bf["rel_fro"].values()),
+                             max_abs_err_fp32=errs[name]["float32"]["max_abs_err"],
+                             ms=times[name],
+                             plain_ms=plain[name], library_ms=library[name],
+                             bound_ms=bound_ms, bound_by=bound_by)
+        emit("kernel_time", kernel=name, dtype="bfloat16", shape=[FB, FS, HQ, HKV, FD],
+             bytes=nbytes, flops=flops, share_of_bound=bound_ms / times[name],
+             achieved_tflops=flops / times[name] / 1e9,
+             library="SDPA forward" if name == "flash_fwd" else
+             "SDPA backward (dq, dk, dv together)", **results[name])
+    del q, k, v, do, o, lse, delta, sq, sk, sv, sdo, so, flush
+    torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------------ engine
 def requests(np, vocab):
     """bench.py serve_trial_main's workload: 32 prompts of 64/128/256/512
@@ -347,10 +538,11 @@ def replay(torch, llama, cfg, params, saved, max_seqs):
 
 
 def kernel_class(name: str) -> str:
-    if "paged_decode" in name:
-        return "paged_decode"
-    if "paged_prefill" in name:
-        return "paged_prefill"
+    for kernel in ("paged_decode", "paged_prefill", "flash_fwd", "flash_dkdv", "flash_dq"):
+        if kernel in name:
+            return kernel
+    if "foreach" in name or "multi_tensor" in name:
+        return "foreach (optimizer, clipping)"
     low = name.lower()
     if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "gemm"
@@ -359,15 +551,15 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_phase(torch, eng, prompts):
-    """A third run of the workload under torch.profiler: device time by
-    kernel class and the device's busy share of the run's wall time (the
-    profiler's own host overhead lengthens this run's wall time)."""
+def profile_phase(torch, work, phase="profile"):
+    """``work()`` under torch.profiler: device time by kernel class and the
+    device's busy share of the wall time (the profiler's own host overhead
+    lengthens that wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(eng, prompts, MAX_NEW)
+        work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -378,7 +570,7 @@ def profile_phase(torch, eng, prompts):
         by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
     busy = sum(by_class.values())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit("profile", wall_ms=wall * 1e3, device_busy_ms=busy,
+    emit(phase, wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3), device_ms_by_class=by_class,
          top_kernels=[{"name": e.key[:90], "count": e.count,
                        "device_ms": e.self_device_time_total / 1e3} for e in top])
@@ -445,7 +637,7 @@ def engine_phase(torch, np, llama, ragged, pa):
     if eng.allocator.free_blocks != rcfg.num_blocks - 1:
         raise AssertionError("KV blocks leaked")
 
-    profile_phase(torch, eng, prompts)
+    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW))
     if cap.saved is None:
         raise AssertionError("no step mixed decodes with prefill tiles")
     res = replay(torch, llama, cfg, eng.params, cap.saved, rcfg.max_seqs)
@@ -480,6 +672,7 @@ def parity_fp32_phase(torch, np, llama, ragged):
         toks[impl] = run(eng, prompts, 8)
         if cap is not None:
             saved = cap.saved
+            cap.restore()  # breaks the engine <-> capture cycle, so del frees the params
         del eng, cap
     if saved is None:
         raise AssertionError("no step mixed decodes with prefill tiles")
@@ -494,6 +687,184 @@ def parity_fp32_phase(torch, np, llama, ragged):
         raise AssertionError("fp32 greedy tokens differ between kernels and plain path")
     del params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------- train
+def train_cfg(llama, layers: int):
+    return dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=layers)
+
+
+def flash_counts(fa) -> dict:
+    return {"flash_fwd": fa.flash_attention_fwd.launches,
+            "flash_dkdv": fa.flash_attention_dkdv.launches,
+            "flash_dq": fa.flash_attention_dq.launches}
+
+
+def train_phase(torch, np, llama, engine_mod, fa):
+    """The training main path: bench.py:trial_main's config on Llama-3-8B
+    widths at 4 layers; per-step loss, grad norm, ms and flash launches."""
+    cfg = train_cfg(llama, TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
+                                         config=dict(TRAIN_CONFIG), seed=0)
+    torch.cuda.synchronize()
+    emit("train_init", model="llama3_8b widths", layers=cfg.num_layers,
+         reduced="depth 32 -> 4 layers (fp32 masters + Adam state of 32 layers need "
+                 "128.5 GB; one card has 80)", num_params=llama.num_params(cfg),
+         memory_allocated_bytes=torch.cuda.memory_allocated(), config=TRAIN_CONFIG,
+         init_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+
+    def make_batch():
+        return {"input_ids": rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                          dtype=np.int32)}
+
+    for _ in range(WARMUP_STEPS):
+        float(eng.train_batch(make_batch()))
+    batches = [make_batch() for _ in range(TIMED_STEPS)]
+    fa.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sampler = PowerSampler()
+    steps = []
+    try:
+        for b in batches:
+            before = flash_counts(fa)
+            loss = float(eng.train_batch(b))
+            after = flash_counts(fa)
+            steps.append(dict(loss=loss, grad_norm=eng.get_global_grad_norm(),
+                              ms=eng.tput_timer.last_duration * 1e3,
+                              launches={k: after[k] - before[k] for k in after}))
+            emit("train_step", step=eng.global_steps, **steps[-1])
+    finally:
+        power = sampler.stop()
+    launches = flash_counts(fa)
+    plain_calls = fa.flash_attention_fwd_ref.calls + fa.flash_attention_bwd_ref.calls
+    total_s = sum(s["ms"] for s in steps) / 1e3
+    tokens_per_s = TIMED_STEPS * TRAIN_BATCH * TRAIN_SEQ / total_s
+    mfu = tokens_per_s * llama.flops_per_token(cfg, TRAIN_SEQ) / BF16_FLOPS_PER_S
+    per_step = {k: v // TIMED_STEPS for k, v in launches.items()}
+    emit("train_run", steps=TIMED_STEPS, time_per_step=total_s / TIMED_STEPS,
+         tokens_per_s=tokens_per_s, mfu=mfu,
+         flops_per_token=llama.flops_per_token(cfg, TRAIN_SEQ),
+         peak_flops=BF16_FLOPS_PER_S, kernel_launches_per_step=per_step,
+         plain_version_calls=plain_calls, skipped_steps=eng.skipped_steps,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         nvidia_smi=nvidia_smi("name", "power.limit"), **power)
+    if not all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps):
+        raise AssertionError("a non-finite loss or grad norm in the timed steps")
+    # each layer: a forward, its recompute in the backward (remat), a backward
+    expected = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_dkdv": TRAIN_LAYERS,
+                "flash_dq": TRAIN_LAYERS}
+    if launches != {k: TIMED_STEPS * n for k, n in expected.items()}:  # so per_step is exact
+        raise AssertionError(f"flash launches over {TIMED_STEPS} steps: {launches}, "
+                             f"want {expected} a step")
+    if plain_calls:
+        raise AssertionError(f"plain attention ran {plain_calls} times on the main path")
+
+    profile_phase(torch, lambda: eng.train_batch(make_batch()), phase="train_profile")
+
+    # memorisation: 8 steps on one repeated batch
+    batch = make_batch()
+    losses = [float(eng.train_batch(batch)) for _ in range(8)]
+    emit("train_repeated_batch", losses=losses, falls=losses[-1] < losses[0])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: {losses}")
+    del eng
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in named_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def grads_of(loss_fn, masters: dict, batch: dict, dtype):
+    """Loss and fp32 gradients of ``loss_fn`` at the compute-dtype cast of
+    ``masters``, as the engine computes them."""
+    from deepspeed_tpu_torch.runtime import precision
+
+    loss = loss_fn(precision.cast_to_compute(masters, dtype), batch)
+    loss.backward()
+    grads = {}
+    for name, x in named_leaves(masters):
+        grads[name], x.grad = x.grad, None
+    return loss.detach(), grads
+
+
+def compare_grads(got: dict, want: dict) -> dict:
+    rel = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want}
+    err = {k: (got[k] - want[k]).abs().max().item() for k in want}
+    return {"max_abs_err": max(err.values()), "max_rel_frobenius_err": max(rel.values()),
+            "rel_frobenius_err_by_leaf": rel}
+
+
+def train_parity(torch, np, llama, engine_mod) -> dict:
+    """The same loss through the kernels and through the plain attention
+    path (``impl="plain"``, swapped into the spec locally): fp32 at 2 layers
+    (loss, every gradient, a 4-step trajectory) and bf16 at 4 layers
+    (gradients)."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    out = {}
+    for name, layers, b, s, dtype, steps in (("fp32", 2, 1, 2048, torch.float32, 4),
+                                            ("bf16", TRAIN_LAYERS, 1, TRAIN_SEQ,
+                                             torch.bfloat16, 0)):
+        cfg = train_cfg(llama, layers)
+        policy = engine_mod.resolve_remat_policy("dots_saveable")
+        spec = llama.build(cfg, remat=True, remat_policy=policy)
+        plain = dataclasses.replace(spec, loss_fn=partial(
+            llama.loss_fn, cfg, attn_impl="plain", remat=True, remat_policy=policy))
+        rng = np.random.default_rng(3)
+        batch = {"input_ids": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)).to("cuda")}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        masters = llama.init_params(cfg, gen, torch.float32, "cuda")
+        for _, x in named_leaves(masters):
+            x.requires_grad_(True)
+        fa.reset_counts()
+        loss_k, g_k = grads_of(spec.loss_fn, masters, batch, dtype)
+        launches = flash_counts(fa)
+        loss_p, g_p = grads_of(plain.loss_fn, masters, batch, dtype)
+        res = dict(loss_kernels=loss_k.item(), loss_plain=loss_p.item(),
+                   loss_abs_err=abs(loss_k.item() - loss_p.item()),
+                   kernel_launches=launches, **compare_grads(g_k, g_p))
+        del g_k, g_p, masters
+        torch.cuda.empty_cache()
+        if steps:
+            traj = {}
+            for label, model in (("kernels", spec), ("plain", plain)):
+                config = dict(TRAIN_CONFIG, train_micro_batch_size_per_device=b,
+                              sequence_length=s, bf16={"enabled": False})
+                eng, _, _, _ = engine_mod.initialize(model=model, config=config, seed=7)
+                traj[label] = [float(eng.train_batch({"input_ids": batch["input_ids"].cpu()
+                                                      .numpy()})) for _ in range(steps)]
+                del eng
+                torch.cuda.empty_cache()
+            res["trajectory"] = traj
+            res["trajectory_max_abs_err"] = max(abs(a - c) for a, c in
+                                                zip(traj["kernels"], traj["plain"]))
+        out[name] = dict(model="llama3_8b widths", layers=layers, batch=b, seq=s, **res)
+    return out
+
+
+# (run, reading, limit): fp32 separates summation order from a wrong
+# kernel; bf16 rounds activations and gradients at different places
+TRAIN_PARITY_LIMITS = [("fp32", "loss_abs_err", 1e-3), ("fp32", "trajectory_max_abs_err", 1e-3),
+                       ("fp32", "max_rel_frobenius_err", 1e-3),
+                       ("bf16", "max_rel_frobenius_err", 5e-2)]
+
+
+def train_parity_phase(torch, np, llama, engine_mod):
+    out = train_parity(torch, np, llama, engine_mod)
+    for name, res in out.items():
+        emit(f"train_parity_{name}", **res)
+    emit("train_parity_limits", **{f"{run}_{key}": lim for run, key, lim in TRAIN_PARITY_LIMITS})
+    for run, key, limit in TRAIN_PARITY_LIMITS:
+        if not out[run][key] <= limit:  # a NaN reading fails too
+            raise AssertionError(f"train parity {run} {key}: {out[run][key]} > {limit}")
 
 
 def main() -> int:
@@ -517,37 +888,60 @@ def main() -> int:
     from deepspeed_tpu_torch.inference import ragged
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops.cuda import _build
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
 
     # 2. build
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    dec_smem = _build.load("paged_decode").dstpu_paged_decode_smem_bytes
-    pre_smem = _build.load("paged_prefill").dstpu_paged_prefill_smem_bytes
-    dec_smem.restype = pre_smem.restype = ctypes.c_size_t
+    smem = {}
+    for name, symbol, args in (("paged_decode", "dstpu_paged_decode_smem_bytes", (HQ, HKV, D, BS)),
+                               ("paged_prefill", "dstpu_paged_prefill_smem_bytes", (D, BS)),
+                               ("flash_fwd", "dstpu_flash_fwd_smem_bytes", (FD, 1)),
+                               ("flash_dkdv", "dstpu_flash_dkdv_smem_bytes", (FD, 1)),
+                               ("flash_dq", "dstpu_flash_dq_smem_bytes", (FD, 1))):
+        lib = "flash_bwd" if name in ("flash_dkdv", "flash_dq") else name
+        fn = getattr(_build.load(lib), symbol)
+        fn.restype = ctypes.c_size_t
+        smem[name] = fn(*args)
     emit("build", seconds=build_s,
          libraries={n: os.path.relpath(p) for n, p in libs.items()},
          ptxas={n: _build.ptxas_report(n) for n in libs},
-         dynamic_smem_bytes_8b={"paged_decode": dec_smem(HQ, HKV, D, BS),
-                                "paged_prefill": pre_smem(D, BS)})
+         dynamic_smem_bytes_at_cell_shapes=smem)
 
     # 3. kernels vs plain versions, times and bounds
     times = kernel_phase(torch, np, pa)
+    times.update(flash_kernel_phase(torch, fa))
 
-    # 4. the main path, and 5. parity
+    # 4. the serving path, and 5. its parity
     launches = engine_phase(torch, np, llama, ragged, pa)
     parity_fp32_phase(torch, np, llama, ragged)
 
-    sources = {"paged_decode": ("deepspeed_tpu_torch/ops/cuda/csrc/paged_decode.cu",
+    # 6. the training path, and 7. its parity
+    launches.update(train_phase(torch, np, llama, engine_mod, fa))
+    train_parity_phase(torch, np, llama, engine_mod)
+
+    csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
+    sources = {"paged_decode": (csrc + "paged_decode.cu",
                                 "deepspeed_tpu/ops/pallas/paged_attention.py:37"),
-               "paged_prefill": ("deepspeed_tpu_torch/ops/cuda/csrc/paged_prefill.cu",
-                                 "deepspeed_tpu/ops/pallas/paged_attention.py:135")}
+               "paged_prefill": (csrc + "paged_prefill.cu",
+                                 "deepspeed_tpu/ops/pallas/paged_attention.py:135"),
+               "flash_fwd": (csrc + "flash_fwd.cu",
+                             "deepspeed_tpu/ops/pallas/flash_attention.py:40"),
+               "flash_dkdv": (csrc + "flash_bwd.cu",
+                              "deepspeed_tpu/ops/pallas/flash_attention.py:170"),
+               "flash_dq": (csrc + "flash_bwd.cu",
+                            "deepspeed_tpu/ops/pallas/flash_attention.py:216")}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = times[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=t["max_abs_err"],
+                            launches=launches[name],
+                            launches_per=("engine run" if name.startswith("paged")
+                                          else "training step"),
+                            max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"]))

@@ -4,9 +4,12 @@ Each module mirrors its counterpart in ``deepspeed_tpu`` by path and public
 name; the JAX package stays the reference the tests hold this one against.
 This package imports ``torch``, ``numpy`` and the standard library only.
 
-The first slice is the ragged serving path: ``RaggedInferenceEngine`` over
-the Llama family, with the paged-decode and tiled-prefill attention kernels
-written by hand in CUDA for Hopper (``ops/cuda``).
+Two slices are ported. Serving: ``RaggedInferenceEngine`` over the Llama
+family, with the paged-decode and tiled-prefill attention kernels. Training:
+``initialize`` -> ``Engine.train_batch`` (AdamW/Adam/SGD with optax
+semantics, bf16 compute over fp32 masters, clipping, activation
+checkpointing, one device), with the flash-attention forward, dK/dV and dQ
+kernels. Every kernel is written by hand in CUDA for Hopper (``ops/cuda``).
 
 Exports load lazily so ``import deepspeed_tpu_torch`` stays cheap.
 """
@@ -18,6 +21,9 @@ import importlib
 __version__ = "0.1.0"
 
 _LAZY = {
+    "initialize": ("deepspeed_tpu_torch.runtime.engine", "initialize"),
+    "Engine": ("deepspeed_tpu_torch.runtime.engine", "Engine"),
+    "load_config": ("deepspeed_tpu_torch.config.config", "load_config"),
     "RaggedConfig": ("deepspeed_tpu_torch.inference.ragged", "RaggedConfig"),
     "RaggedInferenceEngine": ("deepspeed_tpu_torch.inference.ragged",
                               "RaggedInferenceEngine"),

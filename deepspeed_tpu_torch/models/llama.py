@@ -1,11 +1,17 @@
-"""Llama-family causal LM, ragged inference path (counterpart of
-``deepspeed_tpu/models/llama.py``).
+"""Llama-family causal LM (counterpart of ``deepspeed_tpu/models/llama.py``):
+the training forward and loss, and the ragged inference path.
 
 Parameters are a plain dict of tensors in the JAX package's stacked layout
 (``embed [V, d]``, ``layers.* [L, ...]``, ``final_norm [d]``,
 ``lm_head [d, V]``), so ``models/convert.py`` moves weights between the two
 packages with a copy. The decoder is a Python loop over the L layer views.
-The training ``forward`` and ``loss_fn`` arrive with the training slice.
+
+Activation checkpointing wraps each layer in
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``; a remat
+policy is a ``context_fn`` for it (``runtime/engine.py`` resolves the
+config's policy names), and ``None`` saves nothing but the layer's input.
+The JAX package's ``ShardCtx`` is not ported: on one device it is the
+identity.
 """
 
 from __future__ import annotations
@@ -16,10 +22,11 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.api import ModelSpec
+from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_loss
 from deepspeed_tpu_torch.models.paged import ragged_pool_attention, write_kv_paged
-from deepspeed_tpu_torch.ops.attention import apply_rope
+from deepspeed_tpu_torch.ops.attention import apply_rope, attention
 
 
 @dataclass(frozen=True)
@@ -99,6 +106,63 @@ def lm_head(cfg: LlamaConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
+# ------------------------------------------------------------------ training
+def _decoder_layer(cfg: LlamaConfig, attn_impl: str, x: torch.Tensor, lp: dict,
+                   positions: torch.Tensor | None = None) -> torch.Tensor:
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q = (h @ lp["wq"]).reshape(b, s, hq, hd)
+    kk = (h @ lp["wk"]).reshape(b, s, hkv, hd)
+    vv = (h @ lp["wv"]).reshape(b, s, hkv, hd)
+    q, kk = apply_rope(q, kk, positions, cfg.rope_theta)
+    o = attention(q, kk, vv, causal=True, impl=attn_impl)
+    x = x + o.reshape(b, s, hq * hd) @ lp["wo"]
+
+    h = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+def hidden_states(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
+                  attn_impl: str = "auto", remat_policy=None,
+                  remat: bool = False) -> torch.Tensor:
+    """[B, S] int tokens -> [B, S, D] final (post-norm) hidden states."""
+    x = params["embed"][input_ids.long()]
+    layer = partial(_decoder_layer, cfg, attn_impl)
+    ckpt = {} if remat_policy is None else {"context_fn": remat_policy}
+    for i in range(cfg.num_layers):
+        lp = {name: w[i] for name, w in params["layers"].items()}
+        if remat:
+            x = checkpoint(layer, x, lp, use_reentrant=False, **ckpt)
+        else:
+            x = layer(x, lp)
+    return rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def forward(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
+            attn_impl: str = "auto", remat_policy=None,
+            remat: bool = False) -> torch.Tensor:
+    """[B, S] int tokens -> [B, S, V] logits."""
+    x = hidden_states(cfg, params, input_ids, attn_impl=attn_impl,
+                      remat_policy=remat_policy, remat=remat)
+    return x @ lm_head(cfg, params).to(x.dtype)
+
+
+def loss_fn(cfg: LlamaConfig, params: dict, batch: dict, generator=None,
+            attn_impl: str = "auto", remat_policy=None, remat: bool = False):
+    """Next-token loss of ``batch["input_ids"]`` (``batch["labels"]`` when
+    given). ``generator`` is the JAX loss's rng, which this model does not
+    draw from."""
+    del generator
+    logits = forward(cfg, params, batch["input_ids"], attn_impl=attn_impl,
+                     remat_policy=remat_policy, remat=remat)
+    return causal_lm_loss(logits, batch["input_ids"], batch.get("labels"))
+
+
+# ----------------------------------------------------------------- inference
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device="cpu") -> dict:
     """Blocked KV pool, stacked [L, num_blocks, block_size, Hkv, Dh]; block 0
@@ -172,11 +236,16 @@ def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
     return 6.0 * num_params(cfg) + 12.0 * cfg.num_layers * cfg.hidden_size * seq_len / 2.0
 
 
-def build(cfg: LlamaConfig) -> ModelSpec:
+def build(cfg: LlamaConfig, remat: bool = False, remat_policy=None) -> ModelSpec:
+    """The model's spec; ``remat`` and ``remat_policy`` (a ``context_fn`` or
+    None) select activation checkpointing of each decoder layer."""
+    ckpt = dict(remat=remat, remat_policy=remat_policy)
     return ModelSpec(
         name="llama",
         config=cfg,
         init_fn=partial(init_params, cfg),
+        loss_fn=partial(loss_fn, cfg, **ckpt),
+        forward_fn=partial(forward, cfg, **ckpt),
         num_params=num_params(cfg),
         flops_per_token=partial(flops_per_token, cfg),
         init_paged_cache_fn=partial(init_paged_cache, cfg),

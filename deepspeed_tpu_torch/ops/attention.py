@@ -5,7 +5,9 @@
 CUDA kernel for a CUDA tensor and computes the plain PyTorch version for a
 CPU tensor. There is no fall back, no context-length crossover and no
 switch: ``impl="plain"`` exists so tests and ``chip_smoke.py`` can run the
-oracle on the card; the engine never passes it.
+oracle on the card; the engines never pass it. Training attention
+(``attention``) with ``"auto"`` and no bias is the flash-attention autograd
+function; with a bias, or with ``"plain"``, it is ``eager_attention``.
 
 Layouts: q [B, S, Hq, D], k/v [B, S, Hkv, D] (GQA: Hq % Hkv == 0); the paged
 pool is [NB, BS, Hkv, D].
@@ -13,8 +15,11 @@ pool is [NB, BS, Hkv, D].
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from deepspeed_tpu_torch.ops.cuda import flash_attention as _flash
 from deepspeed_tpu_torch.ops.cuda import paged_attention as _paged
 
 
@@ -34,6 +39,40 @@ def _pick(impl: str, wrapper, plain):
     if impl == "plain":
         return plain
     raise ValueError(f"unknown attention impl {impl!r}; want 'auto' or 'plain'")
+
+
+def eager_attention(q, k, v, causal: bool = True, bias=None, scale: float | None = None):
+    """The eager oracle (counterpart of ``deepspeed_tpu/ops/attention.py:36
+    xla_attention``): fp32 scores, an optional additive bias, the causal
+    mask aligned at the end of the keys (queries are the last Sq positions of
+    Skv), softmax in fp32, and the weights cast to v's dtype before P @ V."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        scores = scores + bias.float()
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+                >= torch.arange(sk, device=q.device)[None, :])
+        scores = torch.where(mask, scores, -1e30)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+
+
+def attention(q, k, v, causal: bool = True, bias=None, scale: float | None = None,
+              impl: str = "auto"):
+    """Dispatching training attention (counterpart of
+    ``deepspeed_tpu/ops/attention.py:68 attention``): ``"auto"`` without a
+    bias is the flash-attention autograd function (kernels on CUDA tensors,
+    their plain versions on CPU tensors); with a bias it is
+    ``eager_attention``, as the reference routes it; ``"plain"`` is
+    ``eager_attention``."""
+    if _pick(impl, True, False) and bias is None:
+        return _flash.flash_attention(q, k, v, causal, scale)
+    return eager_attention(q, k, v, causal=causal, bias=bias, scale=scale)
 
 
 def paged_attention(q, k_pool, v_pool, slots, positions, block_tables,

@@ -16,52 +16,12 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace dstpu {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kMaxDim = 128;          // head dims up to 128 ...
 constexpr int kDimPerLane = kMaxDim / 32;  // ... held as 4 registers a lane
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One 16-byte load (4 floats or 8 bf16), widened to fp32.
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 struct Smem {
   long long* row_off;  // [rows] element offset of the row in q / out
@@ -234,13 +194,6 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
       if (off >= 0 && c < d) out[off + c] = from_float<T>(acc[i][t] / denom);
     }
   }
-}
-
-template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 }  // namespace dstpu

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (paged decode, tiled prefill, flash-attention
+forward, dK/dV and dQ) against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; without a CUDA device every test skips (decided in the
 ``cuda`` fixture, never at import). On the H100:
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +33,10 @@ SHAPES = {
 # fp32 kernel vs fp32 plain: summation order only; bf16: both round the
 # output to bf16 (one ulp at |x| ~ 1 is 2**-7) from the same bf16 inputs
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 flash outputs: ||got - want||_F / ||want||_F, the limit of
+# chip_smoke.py's bf16 flash check (between a correct kernel, which rounds p
+# and ds to bf16 before their products, and a softmax scale one bf16 ulp off)
+FLASH_BF16_REL_FRO = 5e-3
 
 
 @pytest.fixture
@@ -41,6 +47,7 @@ def cuda():
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 plain versions
     pa.reset_counts()
+    fa.reset_counts()
     yield torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -142,3 +149,84 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pa.paged_decode_attention(q, *args[1:3], args[3][:-1], args[4], bt_k)
     assert pa.paged_decode_attention.launches == 0
+
+
+# ------------------------------------------------------- flash attention
+# (B, Sq, Skv, Hq, Hkv, D): lengths off the 64-row tile, GQA rep 4 and 1,
+# both head dims, queries shorter than keys (causal: top-left, as Pallas)
+FLASH_SHAPES = {
+    "ragged_gqa4_d128": (2, 100, 100, 8, 2, 128),
+    "mha_d64": (1, 130, 130, 4, 4, 64),
+    "short_q_d128": (1, 64, 192, 4, 2, 128),
+    "one_tile_d64": (2, 17, 17, 4, 1, 64),
+}
+
+
+def _flash_case(shape, dtype, device, seed=0, strided=False):
+    b, sq, skv, hq, hkv, d = shape
+    rng = np.random.default_rng(seed)
+
+    def make(s, h):
+        x = torch.tensor(rng.normal(size=(b, s, h, d)), dtype=dtype, device=device)
+        # strided: the same values in a [B, H, S, D] buffer, viewed as [B, S, H, D]
+        return x.transpose(1, 2).contiguous().transpose(1, 2) if strided else x
+
+    return make(sq, hq), make(skv, hkv), make(skv, hkv), make(sq, hq)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", list(FLASH_SHAPES))
+def test_flash_kernels_match_plain(cuda, shape, dtype, causal, strided):
+    q, k, v, do = _flash_case(FLASH_SHAPES[shape], dtype, cuda, strided=strided)
+    fa.reset_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    grads_ref = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dkdv.launches,
+            fa.flash_attention_dq.launches) == (1, 1, 1)
+    tol = TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+    if dtype == torch.bfloat16:
+        # elementwise 2e-2 is near the outputs' own size; hold each output to
+        # the relative Frobenius limit of chip_smoke.py's bf16 flash check
+        for name, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_ref, *grads_ref)):
+            rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+            assert rel <= FLASH_BF16_REL_FRO, (name, rel)
+
+
+def test_flash_autograd_matches_eager_attention(cuda):
+    """The autograd function (three kernels) against autograd through the
+    fp32 eager oracle, at Sq == Skv where both mask alike."""
+    from deepspeed_tpu_torch.ops.attention import eager_attention
+
+    q, k, v, do = _flash_case((2, 96, 96, 8, 2, 128), torch.float32, cuda)
+    outs, grads = [], []
+    for fn in (fa.flash_attention, eager_attention):
+        qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+        o = fn(qq, kk, vv, True)
+        (o * do).sum().backward()
+        outs.append(o)
+        grads.append((qq.grad, kk.grad, vv.grad))
+    torch.testing.assert_close(outs[0], outs[1], atol=1e-4, rtol=1e-4)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do = _flash_case((1, 64, 64, 4, 2, 96), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v, do = _flash_case((1, 64, 64, 4, 2, 64), torch.float32, cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    assert fa.flash_attention_fwd.launches == 0

@@ -20,6 +20,14 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.ops.cuda._build",
     "deepspeed_tpu_torch.ops.cuda.paged_attention",
     "deepspeed_tpu_torch.inference.ragged",
+    "deepspeed_tpu_torch.config.base",
+    "deepspeed_tpu_torch.config.config",
+    "deepspeed_tpu_torch.ops.optimizers",
+    "deepspeed_tpu_torch.ops.cuda.flash_attention",
+    "deepspeed_tpu_torch.runtime.lr_schedules",
+    "deepspeed_tpu_torch.runtime.precision",
+    "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.utils.timer",
 )
 
 _PROBE = """
@@ -28,6 +36,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 import deepspeed_tpu_torch
 deepspeed_tpu_torch.RaggedInferenceEngine, deepspeed_tpu_torch.llama
+deepspeed_tpu_torch.initialize, deepspeed_tpu_torch.Engine, deepspeed_tpu_torch.load_config
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
 print(",".join(bad))
