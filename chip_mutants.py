@@ -9,9 +9,13 @@ edited file from the copy with the same nvcc flags, and swaps them in for
 the real ones. For the correct kernels and each mutant it prints one JSON
 line with the readings of chip_smoke.py's checks of the mutant's path.
 
-Serving mutants (``paged_common.cuh``):
+Serving mutants (``paged_common.cuh``: the decode kernel and the fp32
+prefill kernel; ``paged_prefill.cu``: the bf16 tensor-core prefill kernel):
 - ``kernel_bf16``: max abs error of each paged kernel against its plain
-  version at the 8B shapes of chip_smoke.py, bf16 (limit 2e-2);
+  version at the 8B shapes of chip_smoke.py, bf16 (decode limit 2e-2 (1 +
+  |want|)), and the prefill kernel's relative Frobenius error and pad-row
+  check (limit 5e-3; the control, a softmax scale one bf16 ulp large, reads
+  beside it);
 - ``replay_bf16``: the captured mixed step of Llama-3-8B (32 layers, random
   bf16 weights) through the kernels vs the plain path: relative Frobenius
   error of the logits (limit 5e-2) and top-1 agreement;
@@ -19,8 +23,8 @@ Serving mutants (``paged_common.cuh``):
   error (limit 1e-3), and whether greedy tokens of 8 short requests equal
   those through the plain path.
 
-Training mutants (``flash_fwd.cu``, ``flash_bwd.cu``; the two ``_mma_``
-ones edit code only the bf16 tensor-core kernels run):
+Training mutants (``flash_fwd.cu``, ``flash_bwd.cu``; the ``_mma_`` and
+``_wgmma_`` ones edit code only the bf16 tensor-core kernels run):
 - ``flash_bf16``: each flash kernel against its plain version at the
   training cell's shapes, bf16: the relative Frobenius error of o, dq, dk
   and dv (limit 5e-3), the max abs error of lse (limit 1e-4) and whether
@@ -75,13 +79,28 @@ MUTANTS = {
     # tensor-core (bf16) kernels only: the dK/dV kernel's ds one bf16 ulp too
     # large, so dK is 2^-7 too large
     "flash_dkdv_mma_ds_one_bf16_ulp": (
-        "flash_bwd.cu", "dp[n][e] = s[n][e] * (dp[n][e] - delta_s[qr]) * scale;",
-        "dp[n][e] = s[n][e] * (dp[n][e] - delta_s[qr]) * (scale * 1.0078125f);"),
+        "flash_bwd.cu", "return st[i] * (dpt[i] - rows[kQ + qr]) * scale;",
+        "return st[i] * (dpt[i] - rows[kQ + qr]) * (scale * 1.0078125f);"),
+    # the bf16 dK/dV kernel's ring carries one q-head of each GQA group too
+    # few: producer and consumers skip the group's last q-head
+    "flash_dkdv_wgmma_drops_last_q_head": (
+        "flash_bwd.cu", "const int total = rep * per_head;",
+        "const int total = (rep - 1) * per_head;"),
+    # the bf16 tensor-core prefill's causal mask off by one: the diagonal
+    # is hidden
+    "prefill_tc_mask_off_by_one": ("paged_prefill.cu", "kpos <= qpos[e >> 1]",
+                                   "kpos < qpos[e >> 1]"),
+    # the bf16 tensor-core prefill's softmax scale one bf16 ulp too large
+    "prefill_tc_scale_one_bf16_ulp": (
+        "paged_prefill.cu", "const float scale_log2 = scale * 1.4426950408889634f;",
+        "const float scale_log2 = (scale * 1.0078125f) * 1.4426950408889634f;"),
 }
 # the kernels each source is compiled into
 BUILT_FROM = {"paged_common.cuh": ("paged_decode", "paged_prefill"),
+              "paged_prefill.cu": ("paged_prefill",),
               "flash_fwd.cu": ("flash_fwd",), "flash_bwd.cu": ("flash_bwd",)}
-SERVING = [m for m, (src, _, _) in MUTANTS.items() if src == "paged_common.cuh"]
+SERVING = [m for m, (src, _, _) in MUTANTS.items()
+           if src in ("paged_common.cuh", "paged_prefill.cu")]
 TRAINING = [m for m in MUTANTS if m not in SERVING]
 
 
@@ -130,17 +149,13 @@ def use(build, libs: dict[str, ctypes.CDLL]) -> None:
         build._LIBS.update(libs)
 
 
-def kernel_errors(torch, np, pa) -> dict[str, float]:
+def kernel_errors(torch, np, pa) -> dict:
     dec = smoke.decode_case(torch, np, torch.bfloat16)
-    pre, ct = smoke.prefill_case(torch, np, torch.bfloat16)
-    errs = {}
-    for name, got, want in (
-            ("paged_decode", pa.paged_decode_attention(*dec),
-             pa.paged_decode_attention_ref(*dec)),
-            ("paged_prefill", pa.ragged_prefill_attention(*pre, ct),
-             pa.ragged_prefill_attention_ref(*pre, ct))):
-        errs[name] = (got.float() - want.float()).abs().max().item()
-    return errs
+    got, want = pa.paged_decode_attention(*dec), pa.paged_decode_attention_ref(*dec)
+    pre = smoke.prefill_check(torch, np, pa)
+    return {"paged_decode": (got.float() - want.float()).abs().max().item(),
+            "paged_prefill": {k: pre[k] for k in ("max_abs_err", "rel_fro", "control_rel_fro",
+                                                  "pad_rows_zero", "ok")}}
 
 
 def main() -> int:

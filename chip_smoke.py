@@ -61,10 +61,11 @@ ENGINE = dict(max_tokens_per_step=1024, max_seqs=32, block_size=32,
 N_REQ, MAX_NEW, PROMPT_LENS = 32, 48, (64, 128, 256, 512)
 # 8B attention shapes
 HQ, HKV, D, BS, MB, NB = 32, 8, 128, 32, 18, 577
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# bf16 flash checks: the fp32 lse to 1e-4, and the outputs to a relative
-# Frobenius error between a correct kernel's rounding (p and ds rounded to
-# bf16 before their products) and the control, the plain version with the
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # paged decode; fp32 prefill
+# bf16 flash and prefill checks: the flash kernels' fp32 lse to 1e-4, and
+# the outputs to a relative Frobenius error between a correct kernel's
+# rounding (flash: p and ds rounded to bf16 before their products; prefill:
+# the output's own rounding) and the control, the plain version with the
 # softmax scale one bf16 ulp (2^-7) too large
 FLASH_LSE_ATOL, FLASH_BF16_REL_FRO, FLASH_CONTROL_SCALE = 1e-4, 5e-3, 1 + 2 ** -7
 # training cell: bench.py:trial_main's config on Llama-3-8B widths at 4 layers
@@ -269,6 +270,26 @@ def sdpa_prefill(torch, args, ct):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
+def prefill_check(torch, np, pa) -> dict:
+    """The bf16 tensor-core prefill kernel against its plain version at
+    ``prefill_case``: relative Frobenius error within FLASH_BF16_REL_FRO,
+    beside the control (the plain version with the softmax scale one bf16
+    ulp too large), which must lie beyond it; pad rows and the all-pad tile
+    exact zeros."""
+    args, ct = prefill_case(torch, np, torch.bfloat16)
+    got = pa.ragged_prefill_attention(*args, ct)
+    want = pa.ragged_prefill_attention_ref(*args, ct)
+    control = pa.ragged_prefill_attention_ref(*args, ct, scale=FLASH_CONTROL_SCALE / D ** 0.5)
+    torch.cuda.synchronize()
+    _, _, _, _, _, tv, _ = args
+    pad = torch.arange(ct, device="cuda")[None, :] >= tv.long()[:, None]  # [NT, CT]
+    res = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+               rel_fro=rel_fro(got, want), control_rel_fro=rel_fro(control, want),
+               pad_rows_zero=not got.reshape(pad.shape[0], ct, -1)[pad].any().item())
+    res["ok"] = res["rel_fro"] <= FLASH_BF16_REL_FRO and res["pad_rows_zero"]  # False on a NaN
+    return res
+
+
 def kernel_phase(torch, np, pa):
     flush = L2Flush(torch)
     results = {}
@@ -282,6 +303,18 @@ def kernel_phase(torch, np, pa):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
+            if name == "paged_prefill" and dtype == torch.bfloat16:
+                r = prefill_check(torch, np, pa)
+                errs[dname] = r["max_abs_err"]
+                check = (f"||got-want||_F / ||want||_F <= {FLASH_BF16_REL_FRO}, control "
+                         "beyond it; pad rows exact zeros")
+                emit("kernel_check", kernel=name, dtype=dname, check=check, **r)
+                if not r["ok"]:
+                    raise AssertionError(f"{name} {dname}: outside {check}: {r}")
+                if not r["control_rel_fro"] > FLASH_BF16_REL_FRO:
+                    raise AssertionError(f"{name}: the control (softmax scale one bf16 ulp "
+                                         f"off) is within the limit {FLASH_BF16_REL_FRO}: {r}")
+                continue
             args, ct = make(dtype)
             extra = () if ct is None else (ct,)
             got = kernel(*args, *extra)
@@ -289,10 +322,10 @@ def kernel_phase(torch, np, pa):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = TOL[dname]
-            ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+            ok = within(torch, got, want, tol)
             errs[dname] = err
             emit("kernel_check", kernel=name, dtype=dname, max_abs_err=err,
-                 tol=tol, ok=ok)
+                 check=f"|got-want| <= {tol} (1+|want|)", tol=tol, ok=ok)
             if not ok:
                 raise AssertionError(f"{name} {dname}: max_abs_err {err} > {tol}")
         # timing at the main path's type (bf16)
@@ -898,7 +931,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     smem = {}
     for name, symbol, args in (("paged_decode", "dstpu_paged_decode_smem_bytes", (HQ, HKV, D, BS)),
-                               ("paged_prefill", "dstpu_paged_prefill_smem_bytes", (D, BS)),
+                               ("paged_prefill", "dstpu_paged_prefill_smem_bytes", (D, BS, 1)),
                                ("flash_fwd", "dstpu_flash_fwd_smem_bytes", (FD, 1)),
                                ("flash_dkdv", "dstpu_flash_dkdv_smem_bytes", (FD, 1)),
                                ("flash_dq", "dstpu_flash_dq_smem_bytes", (FD, 1))):

@@ -1,5 +1,6 @@
-// Tensor-core building blocks of the bf16 flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): bf16 tiles in shared memory and warp-level
+// Tensor-core building blocks of the bf16 `mma.sync` kernels (the flash
+// forward and dQ kernels; the tensor-core prefill takes the product and the
+// quad reductions): bf16 tiles in shared memory and warp-level
 // `mma.sync.m16n8k16` products with fp32 accumulators.
 //
 // A CTA is 4 warps; warp w owns rows 16 w .. 16 w + 15 of a 64-row tile. In
@@ -13,7 +14,7 @@
 // Shared tiles are row-major with rows D + 8 (or 64 + 8) bf16 apart: the
 // 32-bit fragment loads of the 32 lanes (rows g, words c) then hit 32
 // distinct banks. An operand the next product needs with its other index
-// contiguous (v, k, q, dO) is also staged transposed.
+// contiguous (v in the forward, k in dQ) is also staged transposed.
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Shared core of the two paged-attention kernels (paged_decode.cu,
-// paged_prefill.cu): a CTA attends a set of query rows of ONE sequence and
-// ONE KV head over that sequence's blocks of the paged pool, streaming one
-// KV block at a time through shared memory with an fp32 online softmax.
+// Shared core of the paged decode kernel (paged_decode.cu) and the fp32
+// prefill kernel (paged_prefill.cu): a CTA attends a set of query rows of
+// ONE sequence and ONE KV head over that sequence's blocks of the paged
+// pool, streaming one KV block at a time through shared memory with an fp32
+// online softmax.
 //
 // Pool layout [NB, BS, Hkv, D] (the JAX package's, models/paged.py): the BS
 // keys of head h in block b are rows of D contiguous elements, Hkv*D apart.

@@ -147,6 +147,24 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def tma_layout(x) -> list[int]:
+    """The 4-D tensor map the bf16 dK/dV kernel reads a [B, S, H, D] tensor
+    through: dims innermost first (D, S, H, B), then the byte strides of S,
+    H and B. TMA needs those strides to be multiples of 16 bytes."""
+    b, s, h, d = x.shape
+    if x.stride(3) != 1:
+        raise ValueError(f"the head dim must be contiguous; strides {x.stride()}")
+    strides = [x.stride(i) * x.element_size() for i in (1, 2, 0)]
+    if any(st % 16 for st in strides):
+        raise ValueError(f"tensor map strides must be multiples of 16 bytes; got {strides}")
+    return [d, s, h, b, *strides]
+
+
+def _tma_layouts(*tensors) -> ctypes.Array:
+    vals = [v for x in tensors for v in tma_layout(x)]
+    return (ctypes.c_ulonglong * len(vals))(*vals)
+
+
 def _fn(lib_name: str, symbol: str, n_ptr: int):
     fn = getattr(_build.load(lib_name), symbol)
     if fn.argtypes is None:
@@ -214,11 +232,13 @@ def flash_attention_dkdv(q, k, v, do, lse, delta, causal: bool = True,
         return dk, dv
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
-    rc = _fn("flash_bwd", "dstpu_flash_dkdv", 8)(
+    # the bf16 kernel reads q, k, v and dO through TMA tensor maps
+    layouts = _tma_layouts(q, k, v, do) if q.dtype == torch.bfloat16 else None
+    rc = _fn("flash_bwd", "dstpu_flash_dkdv", 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv),
-        b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
-        _stream(q))
+        layouts, b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype],
+        dev, _stream(q))
     if rc:
         raise RuntimeError(f"flash_dkdv kernel launch failed: cudaError_t {rc}")
     flash_attention_dkdv.launches += 1

@@ -191,7 +191,8 @@ def ragged_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0,
                              tile_valid, block_tables, tile: int,
                              scale: float | None = None):
     """Tiled prefill attention: [NT*CT, Hq, D] tile-aligned prefill tokens ->
-    outputs; each CTA fetches a KV block once for 64 query rows of a tile.
+    outputs; each CTA fetches a KV block once for 128 GQA rows of a tile
+    (bf16, tensor cores) or 64 (fp32, CUDA cores).
 
     Scheduler contract (``inference/ragged.py``): each tile's tokens belong
     to ONE sequence at consecutive positions ``pos0..pos0+valid-1``; rows

@@ -33,9 +33,9 @@ SHAPES = {
 # fp32 kernel vs fp32 plain: summation order only; bf16: both round the
 # output to bf16 (one ulp at |x| ~ 1 is 2**-7) from the same bf16 inputs
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# bf16 flash outputs: ||got - want||_F / ||want||_F, the limit of
-# chip_smoke.py's bf16 flash check (between a correct kernel, which rounds p
-# and ds to bf16 before their products, and a softmax scale one bf16 ulp off)
+# bf16 flash and prefill outputs: ||got - want||_F / ||want||_F, the limit of
+# chip_smoke.py's bf16 flash and prefill checks (between a correct kernel's
+# bf16 rounding and a softmax scale one bf16 ulp off)
 FLASH_BF16_REL_FRO = 5e-3
 
 
@@ -93,10 +93,10 @@ def _decode_case(shape, dtype, device, seed=0):
     return (q, kp, vp, slots, pos), bt_k, bt_p
 
 
-def _prefill_case(shape, dtype, device, seed=1):
+def _prefill_case(shape, dtype, device, seed=1, ct=None):
     hq, hkv, d, nb, bs, mb = shape
     rng = np.random.default_rng(seed)
-    ct = min(128, bs * mb // 4)
+    ct = ct or min(128, bs * mb // 4)
     n_seqs = 3
     kp, vp, bt = _pools(rng, shape, n_seqs, dtype, device)
     # (slot, pos0, valid): full tiles, a tile ending on a block edge, pad
@@ -128,14 +128,34 @@ def test_paged_decode_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_prefill_kernel_matches_plain(cuda, shape, dtype):
-    args, bt_k, bt_p, ct, valid_rows = _prefill_case(SHAPES[shape], dtype, cuda)
+    _check_prefill(*_prefill_case(SHAPES[shape], dtype, cuda))
+
+
+def _check_prefill(args, bt_k, bt_p, ct, valid_rows):
     got = pa.ragged_prefill_attention(*args, bt_k, ct)
     want = pa.ragged_prefill_attention_ref(*args, bt_p, ct)
     torch.cuda.synchronize()
     assert pa.ragged_prefill_attention.launches == 1
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=TOL[got.dtype], rtol=TOL[got.dtype])
+    else:  # the tensor-core kernel: relative Frobenius error, as the flash kernels
+        rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rel <= FLASH_BF16_REL_FRO, rel
     # pad rows and the all-pad tile are exact zeros, as in the Pallas kernel
-    assert not got[torch.from_numpy(~valid_rows).to(cuda)].any()
+    assert not got[torch.from_numpy(~valid_rows).to(got.device)].any()
+
+
+# the bf16 prefill kernel's edges: blocks of 8, 16 and 32 keys (a quarter,
+# half and all of its 32-key step), tiles of 64-256 tokens, GQA rep 1, 4, 8
+# and both head dims; each table has room for 2 CT tokens and 4 blocks more
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("ct", [64, 128, 256])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_prefill_kernel_edges(cuda, bs, ct, rep, d):
+    mb = 2 * ct // bs + 4
+    shape = (2 * rep, 2, d, 3 * mb + 1, bs, mb)
+    _check_prefill(*_prefill_case(shape, torch.bfloat16, cuda, ct=ct))
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -159,6 +179,7 @@ FLASH_SHAPES = {
     "mha_d64": (1, 130, 130, 4, 4, 64),
     "short_q_d128": (1, 64, 192, 4, 2, 128),
     "one_tile_d64": (2, 17, 17, 4, 1, 64),
+    "gqa8_d128": (1, 300, 300, 16, 2, 128),
 }
 
 
@@ -200,6 +221,21 @@ def test_flash_kernels_match_plain(cuda, shape, dtype, causal, strided):
         for name, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_ref, *grads_ref)):
             rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
             assert rel <= FLASH_BF16_REL_FRO, (name, rel)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_dkdv_is_bit_identical_across_launches(cuda, dtype, strided):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, do = _flash_case((2, 200, 200, 8, 2, 128), dtype, cuda, strided=strided)
+    o, lse = fa.flash_attention_fwd_ref(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    first = fa.flash_attention_dkdv(q, k, v, do, lse, delta, True)
+    second = fa.flash_attention_dkdv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dkdv.launches == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_matches_eager_attention(cuda):

@@ -177,3 +177,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fa._check(tq.double(), tk, tv)
     with pytest.raises(ValueError, match="contiguous"):
         fa._check(tq.transpose(1, 3).contiguous().transpose(1, 3), tk, tv)
+
+
+# ------------------------------------------------ tensor maps (bf16 dK/dV)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_tma_layout_of_a_contiguous_tensor(dtype):
+    """dims innermost first (D, S, H, B), then the byte strides of S, H, B."""
+    x = torch.zeros(2, 100, 8, 128, dtype=dtype)
+    es = x.element_size()
+    assert fa.tma_layout(x) == [128, 100, 8, 2, 8 * 128 * es, 128 * es, 100 * 8 * 128 * es]
+
+
+def test_tma_layout_of_a_strided_view():
+    """A [B, H, S, D] buffer viewed as [B, S, H, D], as the kernels read it."""
+    x = torch.zeros(2, 8, 100, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fa.tma_layout(x) == [64, 100, 8, 2, 64 * 2, 100 * 64 * 2, 8 * 100 * 64 * 2]
+
+
+def test_tma_layout_rejects_what_tma_cannot_read():
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.tma_layout(torch.zeros(1, 4, 1, 4, dtype=torch.bfloat16))  # 8-byte rows
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.tma_layout(torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16).transpose(2, 3))
