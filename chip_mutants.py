@@ -74,8 +74,20 @@ MUTANTS = {
     # tensor-core (bf16) kernels only: the forward's softmax scale one bf16
     # ulp too large
     "flash_fwd_mma_scale_one_bf16_ulp": (
-        "flash_fwd.cu", "dstpu::kNegInf : s[n][e] * scale;",
-        "dstpu::kNegInf : s[n][e] * (scale * 1.0078125f);"),
+        "flash_fwd.cu", "const float scale_log2 = scale * kLog2e;  // scores to log2 units",
+        "const float scale_log2 = (scale * 1.0078125f) * kLog2e;"),
+    # the bf16 forward's ring stops one key tile short: producer and
+    # consumers skip each CTA's last visible k / v tile
+    "flash_fwd_wgmma_skips_last_kv_tile": (
+        "flash_fwd.cu",
+        "const int n_kt = dstpu::flash::key_tiles(q0, kRows, n_q, n_kv, causal, kKeys);",
+        "const int n_kt = dstpu::flash::key_tiles(q0, kRows, n_q, n_kv, causal, kKeys) - 1;"),
+    # the bf16 dQ kernel's producer loads k from the next kv head, not the
+    # one of the q-head's GQA group (v stays right)
+    "flash_dq_wgmma_wrong_kv_head": (
+        "flash_bwd.cu",
+        "hw::tma_load_tiles(ring.stage(n), &tm_k, bar, NP, 1, n * kDqKeys, kvh, b);",
+        "hw::tma_load_tiles(ring.stage(n), &tm_k, bar, NP, 1, n * kDqKeys, (kvh + 1) % hkv, b);"),
     # tensor-core (bf16) kernels only: the dK/dV kernel's ds one bf16 ulp too
     # large, so dK is 2^-7 too large
     "flash_dkdv_mma_ds_one_bf16_ulp": (

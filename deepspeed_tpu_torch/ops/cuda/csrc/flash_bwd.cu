@@ -12,7 +12,9 @@
 // What bounds them on the H100: at the training shapes dK/dV does 4 and dQ 3
 // tile products per visible (query, key) pair, each 2 flops per head dim,
 // against about 2 bytes per element of their inputs and outputs: far above
-// the card's ridge, so the bound is the tensor cores' rate.
+// the card's ridge, so the bound is the tensor cores' rate (dK/dV 5.50e11
+// flops, 0.556 ms; dQ 4.12e11 flops, 0.417 ms at the training cell's
+// attention).
 //
 // Design. Two kernels, as in the reference, so neither needs atomics and the
 // gradients are the same from run to run.
@@ -22,27 +24,31 @@
 //   writes dK and dV once, in k's dtype. The GQA sum over the group, which
 //   the reference does after its kernel over two [B, Hq, S, D] fp32 buffers
 //   (134 MB each at Llama-3-8B training shapes), happens in registers.
-// - dQ: one CTA per (batch, q-head, 64-row q tile), looping over the kv
-//   tiles its rows can see, with dQ in registers.
+// - dQ: a CTA owns a q tile of one (batch, q-head), loops over the kv tiles
+//   its rows can see, with dQ in registers, and writes dQ once.
 // CTAs with more tiles to visit are launched first. Each kernel comes in
 // two forms, chosen by dtype. fp32 runs CUDA-core FMAs (flash_common.cuh:
 // 256 threads of 4 rows x D/16 columns, 64-row tiles): fp32 checks hold it
-// to 1e-4, which rules out TF32. bf16 (the training path) runs on the
-// tensor cores:
-// - dK/dV (namespace wg): warp-specialised `wgmma` (hopper.cuh). 384
-//   threads: a producer warpgroup, of which one warp keeps TMA loads of the
-//   next q and dO tiles (64 rows, 128-byte swizzled) in flight in a 2-stage
-//   ring, with lse and delta beside them, signalled by mbarriers; and two
-//   consumer warpgroups, each owning 64 of the CTA's 128 keys (k and v
-//   loaded once by TMA). Per q tile a consumer computes s^T = k q^T and
-//   dp^T = v dO^T (A = k or v, B = q or dO, both K-major in shared memory),
-//   then p^T and ds^T in registers, packs them to bf16 as register A
-//   operands, and accumulates dV += p^T dO and dK += ds^T q with B = dO or
-//   q read MN-major (the transpose bit): no operand is staged transposed.
-//   setmaxnreg moves registers from the producer to the consumers.
-// - dQ: `mma.sync` (flash_mma.cuh: 4 warps of 16 rows; s and dp stay in
-//   registers and, packed to bf16, are the A operand of the dQ product; k
-//   is also staged transposed).
+// to 1e-4, which rules out TF32. bf16 (the training path) runs
+// warp-specialised `wgmma` fed by TMA (hopper.cuh, namespace wg), 384
+// threads: a producer warpgroup, of which one warp (dQ: one thread) streams
+// tiles through a ring in shared memory (128-byte swizzled, full / empty
+// mbarriers), and two consumer warpgroups of 64 rows each; setmaxnreg moves
+// registers from the producer to the consumers. No operand is staged
+// transposed: a tile read K-major by one product is read MN-major, with the
+// transpose bit, by the next.
+// - dK/dV: 128 keys a CTA (k and v loaded once), a 2-stage ring of q and
+//   dO tiles (64 rows) with lse and delta beside them. Per q tile a
+//   consumer computes s^T = k q^T and dp^T = v dO^T (A = k or v, B = q or
+//   dO, both K-major), then p^T and ds^T in registers, packs them to bf16
+//   as register A operands, and accumulates dV += p^T dO and dK += ds^T q
+//   with B = dO or q read MN-major.
+// - dQ: 128 q rows a CTA (q and dO loaded once, lse and delta in the
+//   registers of the threads that hold their rows), a 3-stage ring of
+//   64-key k and v tiles. Per tile a consumer computes S = q k^T and
+//   dP = dO v^T (SS, all K-major) as two commit groups, so p is computed
+//   while dP is in flight, then ds in registers, packed to bf16 as the A
+//   operand of dQ += ds k, whose B is the same k tile read MN-major.
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
@@ -220,9 +226,9 @@ using bf16 = __nv_bfloat16;
 constexpr int kKeys = 128;    // keys of a CTA: two consumer warpgroups of 64
 constexpr int kQ = 64;        // q rows of a ring stage
 constexpr int kStages = 2;    // ring depth
-constexpr int kThreads = 384;  // producer warpgroup, then 2 consumer warpgroups
-constexpr int kPanel = 64 * 128;  // bytes of a [64 rows][64 bf16] swizzled panel
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = dstpu::hopper::kWsThreads;
+using dstpu::hopper::kLog2e;
+using dstpu::hopper::kPanel;
 
 // Shared layout (from a 1024-byte aligned base): k, v of the CTA's keys
 // ([2 halves][D/64 panels] each), then kStages stages of (q, dO [D/64
@@ -231,19 +237,6 @@ __host__ __device__ constexpr int kv_bytes(int d) { return 2 * (d / 64) * kPanel
 __host__ __device__ constexpr int stage_bytes(int d) { return 2 * (d / 64) * kPanel + 1024; }
 __host__ __device__ constexpr size_t smem_bytes(int d) {
   return 1024 + 2 * (size_t)kv_bytes(d) + (size_t)kStages * stage_bytes(d) + 8 * (2 * kStages + 1);
-}
-
-// descriptor offset of k-step t (16 columns) in a K-major [64 rows][D]
-// operand of D / 64 swizzled panels: 32 bytes a step, kPanel a panel
-__device__ __forceinline__ uint64_t kstep(int t) { return ((t / 4) * kPanel + (t % 4) * 32) >> 4; }
-
-// d (64 x D) += A B for one 16-deep k-step, A in registers, B MN-major
-template <int D>
-__device__ __forceinline__ void mma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64)
-    dstpu::hopper::wgmma_rs_m64n64_tb(d, a, b);
-  else
-    dstpu::hopper::wgmma_rs_m64n128_tb(d, a, b);
 }
 
 template <int D>
@@ -372,11 +365,11 @@ flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t dodesc = hw::desc_sw128(dod, 16, 1024);
 #pragma unroll
       for (int t = 0; t < D / 16; ++t)
-        hw::wgmma_ss_m64n64(st, kdesc + kstep(t), qdesc + kstep(t), t > 0);
+        hw::wgmma_ss_m64n64(st, kdesc + hw::kstep(t), qdesc + hw::kstep(t), t > 0);
       hw::wgmma_commit();
 #pragma unroll
       for (int t = 0; t < D / 16; ++t)
-        hw::wgmma_ss_m64n64(dpt, vdesc + kstep(t), dodesc + kstep(t), t > 0);
+        hw::wgmma_ss_m64n64(dpt, vdesc + hw::kstep(t), dodesc + hw::kstep(t), t > 0);
       hw::wgmma_commit();
       hw::wgmma_wait<1>();
       hw::fence_regs(st);
@@ -402,7 +395,7 @@ flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t dodesc_t = hw::desc_sw128(dod, kPanel, 1024);
       hw::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 4; ++t) mma_rs<D>(dv_acc, pa[t], dodesc_t + t * (2048 >> 4));
+      for (int t = 0; t < 4; ++t) hw::wgmma_rs_tb<D>(dv_acc, pa[t], dodesc_t + t * (2048 >> 4));
       hw::wgmma_commit();
 
       // ds^T = p^T (dp^T - delta) scale, then dK += ds^T q (B = q, MN-major)
@@ -421,7 +414,7 @@ flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint64_t qdesc_t = hw::desc_sw128(qd, kPanel, 1024);
       hw::wgmma_fence();
 #pragma unroll
-      for (int t = 0; t < 4; ++t) mma_rs<D>(dk_acc, da[t], qdesc_t + t * (2048 >> 4));
+      for (int t = 0; t < 4; ++t) hw::wgmma_rs_tb<D>(dk_acc, da[t], qdesc_t + t * (2048 >> 4));
       hw::wgmma_commit();
       hw::wgmma_wait<0>();
       hw::fence_regs(dv_acc);
@@ -447,86 +440,161 @@ flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-}  // namespace wg
+// ------------------------------------------------ bf16 dQ: wgmma
+constexpr int kDqRows = 128;   // q rows of a dQ CTA: two consumer warpgroups of 64
+constexpr int kDqKeys = 64;    // keys of a dQ ring stage
+constexpr int kDqStages = 3;   // dQ ring depth
+using DqRing = dstpu::hopper::Ring<kDqStages>;
+
+// Shared layout of the dQ kernel (from a 1024-byte aligned base): q and dO
+// ([2 halves][D/64 panels] each), then the ring of (k, v [D/64 panels]
+// each) and its barriers, then the barrier of q and dO.
+__host__ __device__ constexpr size_t dq_smem_bytes(int d) {
+  return 1024 + 4 * (size_t)(d / 64) * kPanel + DqRing::footprint(2 * (d / 64) * kPanel) + 8;
+}
 
 template <int D>
-__global__ void __launch_bounds__(dstpu::flash::mma::kThreads)
-flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdq, int hq, int hkv, int n_q, int n_kv, int causal,
-                    float scale) {
-  namespace mm = dstpu::flash::mma;
-  constexpr int LD = D + mm::kPadH;
-  constexpr int NT = D / 8;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq, Strides sdq,
+                      int batch, int hq, int hkv, int n_q, int n_kv, int causal, float scale) {
+  namespace hw = dstpu::hopper;
+  constexpr int NP = D / 64;  // 64-column panels of a row
+  constexpr int KT = NP * kPanel;  // bytes of a 64-row tile (k, v, half of q or dO)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kBlock * LD;
-  __nv_bfloat16* ks = dos + kBlock * LD;
-  __nv_bfloat16* vs = ks + kBlock * LD;
-  __nv_bfloat16* kt = vs + kBlock * LD;  // k transposed: [D][64]
-  float* lse_s = reinterpret_cast<float*>(kt + D * mm::kLT);
-  float* delta_s = lse_s + kBlock;
+  const uint32_t raw = hw::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t dos = base + 2 * KT;
+  const DqRing ring = DqRing::at(base + 4 * KT, 2 * KT);  // tile n: k, then v
+  const uint32_t q_bar = ring.end();
 
-  const int qb = gridDim.x - 1 - blockIdx.x;  // longest rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the forward's CTA order and ring of k and v tiles
+  const hw::QTile tile = hw::q_tile_longest_first(kDqRows, n_q, hq, batch);
+  const int q0 = tile.q0, h = tile.h, b = tile.b;
   const int kvh = h / (hq / hkv);
+  const int n_kt = dstpu::flash::key_tiles(q0, kDqRows, n_q, n_kv, causal, kDqKeys);
+
+  if (threadIdx.x == 0) {
+    ring.init();
+    hw::mbar_init(q_bar, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread loads q and dO, then keeps the
+    // ring of k and v tiles full
+    hw::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    hw::mbar_arrive_tx(q_bar, 4 * KT);
+    hw::tma_load_tiles(qs, &tm_q, q_bar, NP, 2, q0, h, b);
+    hw::tma_load_tiles(dos, &tm_do, q_bar, NP, 2, q0, h, b);
+    for (int n = 0; n < n_kt; ++n) {
+      const uint32_t bar = ring.acquire(n);
+      hw::tma_load_tiles(ring.stage(n), &tm_k, bar, NP, 1, n * kDqKeys, kvh, b);
+      hw::tma_load_tiles(ring.stage(n) + KT, &tm_v, bar, NP, 1, n * kDqKeys, kvh, b);
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: q rows row0 .. row0 + 63, dQ in registers
+  hw::setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
-  const int q0 = qb * kBlock;
-  const long long row_base = ((long long)b * hq + h) * n_q;
-
-  mm::stage_rows<D>(qs, q, sq, b, h, q0, n_q);
-  mm::stage_rows<D>(dos, dout, sdo, b, h, q0, n_q);
-  for (int r = threadIdx.x; r < kBlock; r += mm::kThreads) {
-    lse_s[r] = q0 + r < n_q ? lse[row_base + q0 + r] : 0.f;
-    delta_s[r] = q0 + r < n_q ? delta[row_base + q0 + r] : 0.f;
+  const int row0 = q0 + 64 * cw;
+  const int r_lo = row0 + 16 * warp + g;  // the thread's rows: r_lo and r_lo + 8
+  const int n_mine = min(n_kt, dstpu::flash::key_tiles(row0, 64, n_q, n_kv, causal, kDqKeys));
+  // the thread's two rows of lse (in log2 units) and delta, held for the loop
+  const long long rb = ((long long)b * hq + h) * n_q;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    lse2[half] = r < n_q ? lse[rb + r] * kLog2e : 0.f;
+    dlt[half] = r < n_q ? delta[rb + r] : 0.f;
   }
+  const uint64_t qdesc = hw::desc_sw128(qs + cw * KT, 16, 1024);
+  const uint64_t dodesc = hw::desc_sw128(dos + cw * KT, 16, 1024);
+  const float scale_log2 = scale * kLog2e;
 
-  float acc[NT][4];
+  float dq_acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  hw::mbar_wait(q_bar, 0);
 
-  int n_blocks = (n_kv + kBlock - 1) / kBlock;
-  if (causal) n_blocks = min(n_blocks, (q0 + kBlock - 1) / kBlock + 1);
-  for (int j = 0; j < n_blocks; ++j) {
-    const int k0 = j * kBlock;
-    __syncthreads();  // every warp is done with the previous k / v tiles
-    mm::stage_rows<D>(ks, k, sk, b, kvh, k0, n_kv);
-    mm::stage_rows<D>(vs, v, sv, b, kvh, k0, n_kv);
-    mm::stage_cols<D>(kt, k, sk, b, kvh, k0, n_kv);
-    __syncthreads();
+  for (int n = 0; n < n_mine; ++n) {
+    ring.wait_loaded(n);
+    const uint32_t kd = ring.stage(n);
+    const uint64_t kdesc = hw::desc_sw128(kd, 16, 1024);
+    const uint64_t vdesc = hw::desc_sw128(kd + KT, 16, 1024);
+    // S = q k^T and dP = dO v^T: 64 rows x 64 keys, depth D, one commit
+    // group each, so p is computed while dP is in flight
+    float sc[kDqKeys / 2], dp[kDqKeys / 2];  // the first k-step overwrites them
+    hw::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t)
+      hw::wgmma_ss_m64n64(sc, qdesc + hw::kstep(t), kdesc + hw::kstep(t), t > 0);
+    hw::wgmma_commit();
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t)
+      hw::wgmma_ss_m64n64(dp, dodesc + hw::kstep(t), vdesc + hw::kstep(t), t > 0);
+    hw::wgmma_commit();
+    hw::wgmma_wait<1>();
+    hw::fence_regs(sc);
 
-    float s[8][4], dp[8][4];
-    mm::warp_nt<D>(s, qs, LD, r0, ks, LD, g, c);
-    mm::warp_nt<D>(dp, dos, LD, r0, vs, LD, g, c);
+    // p = exp(s scale - lse); only tiles on the diagonal or the keys' ragged
+    // end hide keys
+    const int k0 = n * kDqKeys;
+    const bool edge = k0 + kDqKeys > n_kv || (causal && k0 + kDqKeys - 1 > row0);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int i = 0; i < kDqKeys / 2; ++i) {
+      const int half = hw::acc_half(i);
+      const float p = exp2f(fmaf(sc[i], scale_log2, -lse2[half]));
+      sc[i] = edge && hidden(r_lo + 8 * half, k0 + hw::acc_col(i, c), n_q, n_kv, causal) ? 0.f : p;
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dp);
+
+    // ds = p (dp - delta) scale, packed to bf16 as the A operand (64 rows x
+    // 16 keys a k-step) of dQ += ds k, whose B = k is read MN-major: the k
+    // tile S read K-major serves, with the transpose bit, as [keys][D]
+    uint32_t da[kDqKeys / 16][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qr = r0 + g + (e >> 1) * 8;
-        const int key = k0 + 8 * n + 2 * c + (e & 1);
-        const float sc =
-            hidden(q0 + qr, key, n_q, n_kv, causal) ? dstpu::kNegInf : s[n][e] * scale;
-        const float p = expf(sc - lse_s[qr]);
-        s[n][e] = dq_score(p, dp[n][e], delta_s[qr], scale);
-      }
-    uint32_t pa[4][4];
-    mm::to_a(pa, s);
-    mm::warp_pv<NT>(acc, pa, kt, g, c);  // dQ += ds k
+    for (int i = 0; i < kDqKeys / 2; ++i) sc[i] = dq_score(sc[i], dp[i], dlt[hw::acc_half(i)], scale);
+#pragma unroll
+    for (int t = 0; t < kDqKeys / 16; ++t) hw::acc_to_a(da[t], sc, t);
+    const uint64_t kdesc_t = hw::desc_sw128(kd, kPanel, 1024);
+    hw::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < kDqKeys / 16; ++t) hw::wgmma_rs_tb<D>(dq_acc, da[t], kdesc_t + t * (2048 >> 4));
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(dq_acc);
+    ring.release(n);  // stage consumed
   }
+  ring.hand_back(n_mine, n_kt);  // tiles only the other warpgroup's rows see
 
-  const float one[2] = {1.f, 1.f};
-  mm::store_acc<NT>(dq, sdq, b, h, q0 + r0, n_q, acc, one, g, c);
+  // rows r_lo + 8 half, columns 8 j + 2 c (+ 1), written once: no atomics
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (r < n_q)
+      hw::store_row_bf16<D>(dq + b * sdq.b + h * sdq.h + (long long)r * sdq.s + 2 * c, dq_acc,
+                            half, 1.f);
+  }
 }
+
+}  // namespace wg
 
 constexpr size_t dkdv_smem_bytes(int d) { return dstpu::flash::smem_bytes(d, 4, 2, 2); }
 constexpr size_t dq_smem_bytes(int d) { return dstpu::flash::smem_bytes(d, 4, 1, 2); }
-constexpr size_t dq_mma_smem_bytes(int d) { return dstpu::flash::mma::smem_bytes(d, 4, 1, 2); }
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -565,42 +633,6 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [B, S, H, D] tensor as a 4-D tensor map: dims (D, S, H, B) and
-// byte strides (S, H, B) from the wrapper (`tma_layout`), boxes of [64
-// rows][64 bf16], 128-byte swizzled; rows past S read as zeros.
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, const unsigned long long* layout) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {layout[0], layout[1], layout[2], layout[3]};
-  const cuuint64_t strides[3] = {layout[4], layout[5], layout[6]};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D>
 cudaError_t launch_dkdv_wgmma(const Args& a, const unsigned long long* layouts,
                               cudaStream_t stream) {
@@ -608,7 +640,7 @@ cudaError_t launch_dkdv_wgmma(const Args& a, const unsigned long long* layouts,
   CUtensorMap maps[4];  // q, k, v, dO
   const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
   for (int t = 0; t < 4; ++t) {
-    cudaError_t err = tensor_map(&maps[t], ptrs[t], layouts + 7 * t);
+    cudaError_t err = dstpu::hopper::tensor_map(&maps[t], ptrs[t], layouts + 7 * t);
     if (err != cudaSuccess) return err;
   }
   const size_t smem = wg::smem_bytes(D);
@@ -623,27 +655,35 @@ cudaError_t launch_dkdv_wgmma(const Args& a, const unsigned long long* layouts,
 }
 
 template <int D>
-cudaError_t launch_dq_mma(const Args& a, cudaStream_t stream) {
+cudaError_t launch_dq_wgmma(const Args& a, const unsigned long long* layouts,
+                            cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const size_t smem = dq_mma_smem_bytes(D);
-  cudaError_t err = dstpu::allow_smem(flash_dq_mma_kernel<D>, smem);
+  CUtensorMap maps[4];  // q, k, v, dO
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  for (int t = 0; t < 4; ++t) {
+    cudaError_t err = dstpu::hopper::tensor_map(&maps[t], ptrs[t], layouts + 7 * t);
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = wg::dq_smem_bytes(D);
+  cudaError_t err = dstpu::allow_smem(wg::flash_dq_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_q + kBlock - 1) / kBlock, a.hq, a.b);
-  flash_dq_mma_kernel<D><<<grid, dstpu::flash::mma::kThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.st[0], a.st[1], a.st[2],
-      a.st[3], a.st[4], a.hq, a.hkv, a.n_q, a.n_kv, a.causal, a.scale);
+  const int grid = (a.n_q + wg::kDqRows - 1) / wg::kDqRows * a.hq * a.b;
+  wg::flash_dq_wgmma_kernel<D><<<grid, wg::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.st[4], a.b, a.hq, a.hkv,
+      a.n_q, a.n_kv, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-// layouts: the bf16 dK/dV kernel's tensor maps (q, k, v, dO), else unused
+// layouts: the bf16 kernels' tensor maps (q, k, v, dO), else unused
 cudaError_t dispatch(bool dkdv, const Args& a, int d, int dtype,
                      const unsigned long long* layouts, cudaStream_t s) {
   if (dtype == 0 && d == 64) return dkdv ? launch_dkdv<float, 64>(a, s) : launch_dq<float, 64>(a, s);
   if (dtype == 0 && d == 128) return dkdv ? launch_dkdv<float, 128>(a, s) : launch_dq<float, 128>(a, s);
-  if (dtype == 1 && d == 64) return dkdv ? launch_dkdv_wgmma<64>(a, layouts, s) : launch_dq_mma<64>(a, s);
-  if (dtype == 1 && d == 128) return dkdv ? launch_dkdv_wgmma<128>(a, layouts, s) : launch_dq_mma<128>(a, s);
+  if (dtype == 1 && d == 64)
+    return dkdv ? launch_dkdv_wgmma<64>(a, layouts, s) : launch_dq_wgmma<64>(a, layouts, s);
+  if (dtype == 1 && d == 128)
+    return dkdv ? launch_dkdv_wgmma<128>(a, layouts, s) : launch_dq_wgmma<128>(a, layouts, s);
   return cudaErrorInvalidValue;
 }
 
@@ -680,22 +720,23 @@ extern "C" int dstpu_flash_dkdv(const void* q, const void* k, const void* v, con
 }
 
 // strides: element strides of q, k, v, dO, dQ in turn (15 values).
+// layouts (bf16 only): as dstpu_flash_dkdv's (28 values).
 extern "C" int dstpu_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, void* dq,
-                              const long long* strides, int b, int n_q, int n_kv, int hq,
-                              int hkv, int d, int causal, float scale, int dtype, int device,
-                              void* stream) {
+                              const long long* strides, const unsigned long long* layouts,
+                              int b, int n_q, int n_kv, int hq, int hkv, int d, int causal,
+                              float scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a = make_args(q, k, v, dout, lse, delta, strides, 5, b, n_q, n_kv, hq, hkv, causal, scale);
   a.dq = dq;
-  return (int)dispatch(false, a, d, dtype, nullptr, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(false, a, d, dtype, layouts, static_cast<cudaStream_t>(stream));
 }
 
-// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core kernels)
+// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (wgmma kernels)
 extern "C" size_t dstpu_flash_dkdv_smem_bytes(int d, int dtype) {
   return dtype == 1 ? wg::smem_bytes(d) : dkdv_smem_bytes(d);
 }
 extern "C" size_t dstpu_flash_dq_smem_bytes(int d, int dtype) {
-  return dtype == 1 ? dq_mma_smem_bytes(d) : dq_smem_bytes(d);
+  return dtype == 1 ? wg::dq_smem_bytes(d) : dq_smem_bytes(d);
 }

@@ -32,6 +32,17 @@ struct Strides {
   long long b, s, h;
 };
 
+// How many `keys`-key tiles, counted from key 0, the rows [row0, row0 +
+// rows) that lie below n_q see: every tile, or under the causal mask those
+// up to the last such row's position (0 if no row lies below n_q).
+__device__ __forceinline__ int key_tiles(int row0, int rows, int n_q, int n_kv, int causal,
+                                         int keys) {
+  const int n = (n_kv + keys - 1) / keys;
+  const int last = min(row0 + rows, n_q) - 1;
+  if (last < row0) return 0;
+  return causal ? min(n, last / keys + 1) : n;
+}
+
 __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
 }

@@ -9,6 +9,13 @@ Kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``):
   GQA sum over each KV head's q-heads happens inside the kernel);
 - ``flash_attention_dq`` -> ``dq``, replacing ``_dq_kernel``.
 
+All three do far more flops than bytes at training shapes, so the tensor
+cores' rate bounds them. In bf16 each runs warp-specialised ``wgmma`` on
+Hopper: a producer warp streams tiles by TMA through a ring in shared
+memory, two consumer warpgroups multiply; operands are read through 4-D
+tensor maps (``tma_layout``) and nothing is staged transposed. In fp32 they
+run CUDA-core FMAs (fp32 checks at 1e-4 rule out TF32).
+
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it computes the plain version. The plain versions compute the same
 function in fp32 with torch ops: ``flash_attention_fwd_ref`` and
@@ -148,7 +155,7 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def tma_layout(x) -> list[int]:
-    """The 4-D tensor map the bf16 dK/dV kernel reads a [B, S, H, D] tensor
+    """The 4-D tensor map the bf16 kernels read a [B, S, H, D] tensor
     through: dims innermost first (D, S, H, B), then the byte strides of S,
     H and B. TMA needs those strides to be multiples of 16 bytes."""
     b, s, h, d = x.shape
@@ -160,7 +167,12 @@ def tma_layout(x) -> list[int]:
     return [d, s, h, b, *strides]
 
 
-def _tma_layouts(*tensors) -> ctypes.Array:
+def kernel_layouts(*tensors) -> ctypes.Array | None:
+    """The tensor maps of ``tensors`` in turn (7 values each) for the bf16
+    kernels, which read their inputs by TMA; None for fp32, whose kernels
+    read through the element strides."""
+    if tensors[0].dtype != torch.bfloat16:
+        return None
     vals = [v for x in tensors for v in tma_layout(x)]
     return (ctypes.c_ulonglong * len(vals))(*vals)
 
@@ -196,10 +208,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float | None = None
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    rc = _fn("flash_fwd", "dstpu_flash_fwd", 5)(
+    rc = _fn("flash_fwd", "dstpu_flash_fwd", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v, o), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
-        _DTYPES[q.dtype], dev, _stream(q))
+        _strides(q, k, v, o), kernel_layouts(q, k, v), b, sq, skv, hq, hkv, d, int(causal),
+        _scale(q, scale), _DTYPES[q.dtype], dev, _stream(q))
     if rc:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
     flash_attention_fwd.launches += 1
@@ -232,13 +244,11 @@ def flash_attention_dkdv(q, k, v, do, lse, delta, causal: bool = True,
         return dk, dv
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
-    # the bf16 kernel reads q, k, v and dO through TMA tensor maps
-    layouts = _tma_layouts(q, k, v, do) if q.dtype == torch.bfloat16 else None
     rc = _fn("flash_bwd", "dstpu_flash_dkdv", 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv),
-        layouts, b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype],
-        dev, _stream(q))
+        kernel_layouts(q, k, v, do), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
+        _DTYPES[q.dtype], dev, _stream(q))
     if rc:
         raise RuntimeError(f"flash_dkdv kernel launch failed: cudaError_t {rc}")
     flash_attention_dkdv.launches += 1
@@ -257,11 +267,11 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:
         return dq
-    rc = _fn("flash_bwd", "dstpu_flash_dq", 7)(
+    rc = _fn("flash_bwd", "dstpu_flash_dq", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq),
-        b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
-        _stream(q))
+        kernel_layouts(q, k, v, do), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
+        _DTYPES[q.dtype], dev, _stream(q))
     if rc:
         raise RuntimeError(f"flash_dq kernel launch failed: cudaError_t {rc}")
     flash_attention_dq.launches += 1

@@ -173,13 +173,17 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 # ------------------------------------------------------- flash attention
 # (B, Sq, Skv, Hq, Hkv, D): lengths off the 64-row tile, GQA rep 4 and 1,
-# both head dims, queries shorter than keys (causal: top-left, as Pallas)
+# both head dims, queries shorter than keys and longer than keys (causal:
+# top-left, as Pallas), and a sequence off the 128-row q tile that runs
+# the forward's and dQ's 64-key rings through many phases at rep 8
 FLASH_SHAPES = {
     "ragged_gqa4_d128": (2, 100, 100, 8, 2, 128),
     "mha_d64": (1, 130, 130, 4, 4, 64),
     "short_q_d128": (1, 64, 192, 4, 2, 128),
     "one_tile_d64": (2, 17, 17, 4, 1, 64),
     "gqa8_d128": (1, 300, 300, 16, 2, 128),
+    "long_q_d128": (2, 250, 90, 8, 2, 128),
+    "rep8_s1000_d128": (1, 1000, 1000, 16, 2, 128),
 }
 
 
@@ -225,16 +229,20 @@ def test_flash_kernels_match_plain(cuda, shape, dtype, causal, strided):
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-def test_flash_dkdv_is_bit_identical_across_launches(cuda, dtype, strided):
-    """No atomics: two launches on the same inputs give the same bits."""
-    q, k, v, do = _flash_case((2, 200, 200, 8, 2, 128), dtype, cuda, strided=strided)
+@pytest.mark.parametrize("kernel", ["fwd", "dkdv", "dq"])
+def test_flash_kernels_are_bit_identical_across_launches(cuda, kernel, dtype, strided):
+    """No atomics: two launches on the same inputs give the same bits (S =
+    300 lies off the kernels' 128-row tiles)."""
+    q, k, v, do = _flash_case((2, 300, 300, 8, 2, 128), dtype, cuda, strided=strided)
     o, lse = fa.flash_attention_fwd_ref(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    first = fa.flash_attention_dkdv(q, k, v, do, lse, delta, True)
-    second = fa.flash_attention_dkdv(q, k, v, do, lse, delta, True)
+    fn = {"fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
+          "dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, True),
+          "dq": lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta, True),)}[kernel]
+    first, second = fn(), fn()
     torch.cuda.synchronize()
-    assert fa.flash_attention_dkdv.launches == 2
-    for a, b in zip(first, second):
+    assert getattr(fa, f"flash_attention_{kernel}").launches == 2
+    for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)
 
 

@@ -199,3 +199,16 @@ def test_tma_layout_rejects_what_tma_cannot_read():
         fa.tma_layout(torch.zeros(1, 4, 1, 4, dtype=torch.bfloat16))  # 8-byte rows
     with pytest.raises(ValueError, match="contiguous"):
         fa.tma_layout(torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16).transpose(2, 3))
+
+
+def test_kernel_layouts_give_the_bf16_kernels_one_map_per_tensor():
+    """The bf16 kernels get the tensor maps of their inputs in turn (q, k, v
+    for the forward; q, k, v, dO for dK/dV and dQ), 7 values each; the fp32
+    kernels, which read through strides, get none."""
+    q = torch.zeros(2, 130, 8, 128, dtype=torch.bfloat16)
+    k = torch.zeros(2, 8, 100, 128, dtype=torch.bfloat16).transpose(1, 2)  # strided
+    layouts = fa.kernel_layouts(q, k, k, q)
+    assert list(layouts) == fa.tma_layout(q) + 2 * fa.tma_layout(k) + fa.tma_layout(q)
+    assert fa.kernel_layouts(q.float(), k.float(), k.float()) is None
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.kernel_layouts(q, torch.zeros(1, 4, 1, 4, dtype=torch.bfloat16))
