@@ -9,8 +9,8 @@ edited file from the copy with the same nvcc flags, and swaps them in for
 the real ones. For the correct kernels and each mutant it prints one JSON
 line with the readings of chip_smoke.py's checks of the mutant's path.
 
-Serving mutants (``paged_common.cuh``: the decode kernel and the fp32
-prefill kernel; ``paged_prefill.cu``: the bf16 tensor-core prefill kernel):
+Serving mutants (``paged_decode.cu``: the split-context decode kernel;
+``paged_prefill.cu``: the bf16 tensor-core prefill kernel):
 - ``kernel_bf16``: max abs error of each paged kernel against its plain
   version at the 8B shapes of chip_smoke.py, bf16 (decode limit 2e-2 (1 +
   |want|)), and the prefill kernel's relative Frobenius error and pad-row
@@ -57,14 +57,26 @@ import chip_smoke as smoke
 
 # name -> (source file, its text, the replacement)
 MUTANTS = {
-    # a key is visible only strictly before the query: drops the diagonal
-    "mask_off_by_one": ("paged_common.cuh", "kpos0 + kk <= qpos[i]", "kpos0 + kk < qpos[i]"),
-    # the softmax scale one bf16 ulp (2^-7) too large
-    "scale_one_bf16_ulp": ("paged_common.cuh", "* scale : 0.f",
+    # decode: a key is visible only strictly before the query: drops the
+    # diagonal
+    "mask_off_by_one": ("paged_decode.cu", "kpos <= pos && kpos < split_end",
+                        "kpos < pos && kpos < split_end"),
+    # decode: the softmax scale one bf16 ulp (2^-7) too large
+    "scale_one_bf16_ulp": ("paged_decode.cu", "* scale : 0.f",
                            "* (scale * 1.0078125f) : 0.f"),
-    # probabilities rounded to bf16 before P @ V
-    "probs_rounded_to_bf16": ("paged_common.cuh", "pw[i * bs + kk] = e;",
-                              "pw[i * bs + kk] = __bfloat162float(__float2bfloat16(e));"),
+    # decode: probabilities rounded to bf16 before P @ V
+    "probs_rounded_to_bf16": ("paged_decode.cu", "pr[i] = seen ? expf(x - m_new) : 0.f;",
+                              "pr[i] = seen ? __bfloat162float(__float2bfloat16("
+                              "expf(x - m_new))) : 0.f;"),
+    # decode: the merge leaves out the last live split of each context
+    "decode_drops_last_split": ("paged_decode.cu",
+                                "u < n_live; ++u) {\n      const float w",
+                                "u < n_live - 1; ++u) {\n      const float w"),
+    # decode: the merge adds the splits' partials without the exp(m_s - m)
+    # factor that puts them on one scale
+    "decode_combine_skips_rescale": ("paged_decode.cu",
+                                     "const float w = expf(__ldcg(mlr + 2 * u) - mx);",
+                                     "const float w = 1.f;"),
     # the flash forward's causal mask off by one: the diagonal is hidden too
     "flash_fwd_mask_off_by_one": ("flash_fwd.cu", "(causal && kpos > qpos)",
                                   "(causal && kpos >= qpos)"),
@@ -108,11 +120,11 @@ MUTANTS = {
         "const float scale_log2 = (scale * 1.0078125f) * 1.4426950408889634f;"),
 }
 # the kernels each source is compiled into
-BUILT_FROM = {"paged_common.cuh": ("paged_decode", "paged_prefill"),
+BUILT_FROM = {"paged_decode.cu": ("paged_decode",),
               "paged_prefill.cu": ("paged_prefill",),
               "flash_fwd.cu": ("flash_fwd",), "flash_bwd.cu": ("flash_bwd",)}
 SERVING = [m for m, (src, _, _) in MUTANTS.items()
-           if src in ("paged_common.cuh", "paged_prefill.cu")]
+           if src in ("paged_decode.cu", "paged_prefill.cu")]
 TRAINING = [m for m in MUTANTS if m not in SERVING]
 
 

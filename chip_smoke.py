@@ -17,7 +17,10 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    version and a library yardstick (SDPA, which the port never calls; the
    backward kernels' ``kernel_time`` lines add an estimate, not a
    measurement, of their part of SDPA's one backward call: its time times
-   their share of the pair's flops);
+   their share of the pair's flops); then ``head_dims``: all five kernels
+   against their plain versions at head dims 16, 80, 96 and 256 in fp32
+   and bf16, and a few training steps of ``LlamaConfig.tiny()`` (head dim
+   16) through the flash kernels;
 4. engine: 32 requests x 48 greedy tokens through ``put()`` and
    ``generate_all()``, run twice on one engine, the second run reported,
    with the kernels' launch counts taken over that run alone; then a third
@@ -126,6 +129,20 @@ def cuda_ms(torch, fn, flush, iters: int = 50, warmup: int = 5) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def host_ms_per_call(torch, fn, iters: int = 200) -> float:
+    """Host time of one call of ``fn``: the wrapper's Python and the launch,
+    not the card's work. Mean over ``iters`` calls queued back to back, with
+    the card drained before the first; a kernel shorter than this shows it
+    between ``cuda_ms``'s events, which bracket the host's enqueue."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / iters
+
+
 class PowerSampler:
     """nvidia-smi sampling SM clock and power draw beside a window."""
 
@@ -159,10 +176,10 @@ class PowerSampler:
 
 
 # ------------------------------------------------------------ kernel cases
-def decode_case(torch, np, dtype):
+def decode_case(torch, np, dtype, d=D):
     """T = 32 tokens: 28 sequences with contexts 1..560 on and around block
     edges, each in its own slot with blocks drawn from a permutation of the
-    pool, plus 4 padding tokens (slot max_seqs, position 0)."""
+    pool, plus 4 padding tokens (slot max_seqs, position 0); head dim d."""
     rng = np.random.default_rng(0)
     pos = [0, 30, 31, 32, 33, 63, 64, 95, 96, 127, 128, 159, 160, 255, 256, 257,
            300, 383, 384, 400, 447, 448, 500, 511, 512, 530, 558, 559]
@@ -174,18 +191,18 @@ def decode_case(torch, np, dtype):
             bt[s, j] = next(perm)
     slots = list(range(len(pos))) + [max_seqs] * 4
     pos = pos + [0] * 4
-    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, D)), dtype=dtype, device="cuda")
-    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, D)), dtype=dtype, device="cuda")
-    q = torch.tensor(rng.normal(size=(len(pos), HQ, D)), dtype=dtype, device="cuda")
+    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
+    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
+    q = torch.tensor(rng.normal(size=(len(pos), HQ, d)), dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
     return (q, kp, vp, torch.tensor(slots, **i32), torch.tensor(pos, **i32),
             torch.tensor(bt, **i32))
 
 
-def prefill_case(torch, np, dtype):
+def prefill_case(torch, np, dtype, d=D):
     """8 tiles of CT = 128 as the engine lays out a 1024-token step: a 512-
     token prompt (4 tiles), a 228-token prompt (pad rows), a 64-token prompt
-    (pad rows) and one all-pad tile."""
+    (pad rows) and one all-pad tile; head dim d."""
     rng = np.random.default_rng(1)
     ct, max_seqs = 128, 32
     tiles = [(0, 0, 128), (0, 128, 128), (0, 256, 128), (0, 384, 128),
@@ -195,9 +212,9 @@ def prefill_case(torch, np, dtype):
     for s, length in ((0, 512), (1, 228), (2, 64)):
         for j in range(-(-length // BS)):
             bt[s, j] = next(perm)
-    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, D)), dtype=dtype, device="cuda")
-    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, D)), dtype=dtype, device="cuda")
-    q = torch.tensor(rng.normal(size=(len(tiles) * ct, HQ, D)), dtype=dtype, device="cuda")
+    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
+    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
+    q = torch.tensor(rng.normal(size=(len(tiles) * ct, HQ, d)), dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
     meta = [torch.tensor(c, **i32) for c in zip(*tiles)]
     return (q, kp, vp, *meta, torch.tensor(bt, **i32)), ct
@@ -273,16 +290,16 @@ def sdpa_prefill(torch, args, ct):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
-def prefill_check(torch, np, pa) -> dict:
+def prefill_check(torch, np, pa, d=D) -> dict:
     """The bf16 tensor-core prefill kernel against its plain version at
     ``prefill_case``: relative Frobenius error within FLASH_BF16_REL_FRO,
     beside the control (the plain version with the softmax scale one bf16
     ulp too large), which must lie beyond it; pad rows and the all-pad tile
     exact zeros."""
-    args, ct = prefill_case(torch, np, torch.bfloat16)
+    args, ct = prefill_case(torch, np, torch.bfloat16, d)
     got = pa.ragged_prefill_attention(*args, ct)
     want = pa.ragged_prefill_attention_ref(*args, ct)
-    control = pa.ragged_prefill_attention_ref(*args, ct, scale=FLASH_CONTROL_SCALE / D ** 0.5)
+    control = pa.ragged_prefill_attention_ref(*args, ct, scale=FLASH_CONTROL_SCALE / d ** 0.5)
     torch.cuda.synchronize()
     _, _, _, _, _, tv, _ = args
     pad = torch.arange(ct, device="cuda")[None, :] >= tv.long()[:, None]  # [NT, CT]
@@ -296,9 +313,12 @@ def prefill_check(torch, np, pa) -> dict:
 def kernel_phase(torch, np, pa):
     flush = L2Flush(torch)
     results = {}
+    # decode runs as the engine runs it: on a workspace its cache owns
+    workspace = pa.DecodeWorkspace("cuda", HQ, HKV, D)
     for name, make, kernel, ref, work, lib in (
             ("paged_decode", lambda dt: (decode_case(torch, np, dt), None),
-             pa.paged_decode_attention, pa.paged_decode_attention_ref,
+             partial(pa.paged_decode_attention, workspace=workspace),
+             pa.paged_decode_attention_ref,
              lambda a, ct: decode_work(a), lambda a, ct: sdpa_decode(torch, a)),
             ("paged_prefill", lambda dt: prefill_case(torch, np, dt),
              pa.ragged_prefill_attention, pa.ragged_prefill_attention_ref,
@@ -342,8 +362,16 @@ def kernel_phase(torch, np, pa):
         results[name] = dict(max_abs_err=errs["bfloat16"], max_abs_err_fp32=errs["float32"],
                              ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
+        shape = {}
+        if name == "paged_decode":  # the split count the wrapper picks at this shape
+            q, _, _, _, _, bt = args
+            shape["splits"] = pa.decode_splits(q.shape[0], HKV, bt.shape[1],
+                                               torch.cuda.get_device_properties(0)
+                                               .multi_processor_count)
         emit("kernel_time", kernel=name, dtype="bfloat16", bytes=nbytes, flops=flops,
-             share_of_bound=bound_ms / ms, **results[name])
+             share_of_bound=bound_ms / ms,
+             host_ms_per_call=host_ms_per_call(torch, lambda: kernel(*args, *extra)),
+             **shape, **results[name])
         del args
     del flush
     torch.cuda.empty_cache()
@@ -351,14 +379,18 @@ def kernel_phase(torch, np, pa):
 
 
 # ----------------------------------------------------------- flash kernels
-def flash_inputs(torch, dtype, seed=0):
-    """q, k, v, dO of the training cell's attention, drawn on the card."""
+FLASH_SHAPE = (FB, FS, HQ, HKV, FD)  # (B, S, Hq, Hkv, D) of the training cell
+
+
+def flash_inputs(torch, dtype, seed=0, shape=FLASH_SHAPE):
+    """q, k, v, dO of attention at ``shape``, drawn on the card."""
+    b, s, hq, hkv, d = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(h):
-        return torch.randn((FB, FS, h, FD), generator=g, device="cuda").to(dtype)
+        return torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
 
-    return draw(HQ), draw(HKV), draw(HKV), draw(HQ)
+    return draw(hq), draw(hkv), draw(hkv), draw(hq)
 
 
 def flash_work(dtype_bytes: int):
@@ -388,17 +420,17 @@ def rel_fro(got, want) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def flash_check(torch, fa, dtype) -> dict:
-    """Each flash kernel against its plain version on the same inputs at the
-    training cell's shapes; the backward kernels get the plain forward's o
-    and lse, so only they differ. Per kernel: max abs error and whether it
-    passes. fp32: |got - want| <= 1e-4 (1 + |want|) for every output. bf16:
-    lse (fp32 in both) within FLASH_LSE_ATOL, and o, dq, dk, dv each within
-    FLASH_BF16_REL_FRO relative Frobenius error; beside it the control: the
-    plain version with the softmax scale one bf16 ulp too large, which
-    must lie beyond the limit, so the limit is shown to tell such a fault
-    from rounding."""
-    q, k, v, do = flash_inputs(torch, dtype)
+def flash_check(torch, fa, dtype, shape=FLASH_SHAPE) -> dict:
+    """Each flash kernel against its plain version on the same inputs at
+    ``shape`` (the training cell's by default), causal; the backward kernels
+    get the plain forward's o and lse, so only they differ. Per kernel: max
+    abs error and whether it passes. fp32: |got - want| <= 1e-4 (1 + |want|)
+    for every output. bf16: lse (fp32 in both) within FLASH_LSE_ATOL, and o,
+    dq, dk, dv each within FLASH_BF16_REL_FRO relative Frobenius error;
+    beside it the control: the plain version with the softmax scale one bf16
+    ulp too large, which must lie beyond the limit, so the limit is shown to
+    tell such a fault from rounding."""
+    q, k, v, do = flash_inputs(torch, dtype, shape=shape)
     o, lse = fa.flash_attention_fwd(q, k, v, True)
     o_ref, lse_ref = fa.flash_attention_fwd_ref(q, k, v, True)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, True)
@@ -418,7 +450,7 @@ def flash_check(torch, fa, dtype) -> dict:
         for name in ("flash_dkdv", "flash_dq"):
             res[name]["ok"] = all(within(torch, a, b, tol) for a, b in outs[name].values())
     else:
-        scale = FLASH_CONTROL_SCALE / FD ** 0.5
+        scale = FLASH_CONTROL_SCALE / shape[-1] ** 0.5
         o_c, _ = fa.flash_attention_fwd_ref(q, k, v, True, scale)
         dq_c, dk_c, dv_c = fa.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, True, scale)
         control = {"o": o_c, "dq": dq_c, "dk": dk_c, "dv": dv_c}
@@ -451,7 +483,7 @@ def flash_kernel_phase(torch, fa):
         dname = str(dtype).split(".")[1]
         for name, r in flash_check(torch, fa, dtype).items():
             errs.setdefault(name, {})[dname] = r
-            emit("kernel_check", kernel=name, dtype=dname, shape=[FB, FS, HQ, HKV, FD],
+            emit("kernel_check", kernel=name, dtype=dname, shape=list(FLASH_SHAPE),
                  causal=True, check=limits[dname], **r)
             if not r["ok"]:
                 raise AssertionError(f"{name} {dname}: outside {limits[dname]}: {r}")
@@ -510,7 +542,7 @@ def flash_kernel_phase(torch, fa):
                              bound_ms=bound_ms, bound_by=bound_by)
         estimate = {} if name == "flash_fwd" else dict(
             library_flop_share_estimate_ms=library[name] * share[name])
-        emit("kernel_time", kernel=name, dtype="bfloat16", shape=[FB, FS, HQ, HKV, FD],
+        emit("kernel_time", kernel=name, dtype="bfloat16", shape=list(FLASH_SHAPE),
              bytes=nbytes, flops=flops, share_of_bound=bound_ms / times[name],
              achieved_tflops=flops / times[name] / 1e9,
              library="SDPA forward" if name == "flash_fwd" else
@@ -518,6 +550,83 @@ def flash_kernel_phase(torch, fa):
     del q, k, v, do, o, lse, delta, sq, sk, sv, sdo, so, flush
     torch.cuda.empty_cache()
     return results
+
+
+# --------------------------------------------------------------- head dims
+HEAD_DIMS = (16, 80, 96, 256)  # taken by the reference's kernels, besides 64 and 128
+HEAD_DIM_FLASH = (1, 1000, 8, 2)  # (B, S, Hq, Hkv): GQA rep 4, S off the 128-row tile
+
+
+def head_dim_checks(torch, np, pa, fa, d: int, dtype) -> dict:
+    """All five kernels against their plain versions at head dim d, with the
+    kernel phase's checks: paged decode |got - want| <= TOL (1 + |want|);
+    prefill fp32 the same at 1e-4, bf16 relative Frobenius within
+    FLASH_BF16_REL_FRO beside its control, pad rows exact zeros; the flash
+    kernels as ``flash_check`` at ``HEAD_DIM_FLASH``, causal."""
+    dname = str(dtype).split(".")[1]
+    tol = TOL[dname]
+    out = {}
+    args = decode_case(torch, np, dtype, d)
+    got, want = pa.paged_decode_attention(*args), pa.paged_decode_attention_ref(*args)
+    out["paged_decode"] = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                               ok=within(torch, got, want, tol))
+    if dtype == torch.bfloat16:
+        r = prefill_check(torch, np, pa, d)
+        r["ok"] = r["ok"] and r["control_rel_fro"] > FLASH_BF16_REL_FRO
+    else:
+        args, ct = prefill_case(torch, np, dtype, d)
+        got, want = pa.ragged_prefill_attention(*args, ct), pa.ragged_prefill_attention_ref(*args, ct)
+        r = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
+                 ok=within(torch, got, want, tol))
+    out["paged_prefill"] = r
+    for name, r in flash_check(torch, fa, dtype, shape=(*HEAD_DIM_FLASH, d)).items():
+        if dtype == torch.bfloat16:
+            r["ok"] = r["ok"] and min(r["control_rel_fro"].values()) > FLASH_BF16_REL_FRO
+        out[name] = r
+    del args, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def head_dims_phase(torch, np, pa, fa, llama, engine_mod) -> None:
+    """Every head dim the reference's kernels take runs on a hand-written
+    kernel: the five kernels at HEAD_DIMS in fp32 and bf16, then
+    ``LlamaConfig.tiny()`` (head dim 16) trained on one repeated batch
+    through ``initialize`` / ``train_batch``: the flash kernels launch, the
+    plain versions are never called, and the loss falls."""
+    failed = []
+    for d in HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            res = head_dim_checks(torch, np, pa, fa, d, dtype)
+            emit("head_dim_check", head_dim=d, dtype=dname, decode_tol=TOL[dname],
+                 flash_shape=[*HEAD_DIM_FLASH, d], kernels=res)
+            failed += [f"{name} d={d} {dname}" for name, r in res.items() if not r["ok"]]
+
+    cfg = llama.LlamaConfig.tiny()
+    fa.reset_counts()
+    eng, _, _, _ = engine_mod.initialize(
+        model=partial(llama.build, cfg), seed=0,
+        config={"train_micro_batch_size_per_device": 2, "steps_per_print": 0,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}})
+    batch = {"input_ids": np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128),
+                                                            dtype=np.int32)}
+    losses = [float(eng.train_batch(batch)) for _ in range(8)]
+    launches = flash_counts(fa)
+    plain_calls = fa.flash_attention_fwd_ref.calls + fa.flash_attention_bwd_ref.calls
+    emit("head_dims_train", model="LlamaConfig.tiny()", head_dim=cfg.hd,
+         compute_dtype=str(eng.config.compute_dtype), losses=losses, kernel_launches=launches,
+         plain_version_calls=plain_calls)
+    del eng
+    torch.cuda.empty_cache()
+    if min(launches.values()) <= 0:
+        failed.append(f"tiny training launched no flash kernel: {launches}")
+    if plain_calls:
+        failed.append(f"tiny training called the plain attention {plain_calls} times")
+    if not losses[-1] < losses[0]:
+        failed.append(f"tiny training's loss did not fall: {losses}")
+    if failed:
+        raise AssertionError(f"head_dims: {failed}")
 
 
 # ------------------------------------------------------------------ engine
@@ -553,7 +662,7 @@ class StepCapture:
                 inputs=(tokens.clone(), slots.clone(), positions.clone(), bt.clone()),
                 tiles=(prefill_tiles[0], *(t.clone() for t in prefill_tiles[1:4]),
                        prefill_tiles[4]),
-                cache={k: v.clone() for k, v in cache.items()})
+                cache={k: cache[k].clone() for k in ("k", "v")})
         return self.fwd(params, tokens, slots, positions, bt, cache,
                         prefill_tiles=prefill_tiles)
 
@@ -630,7 +739,7 @@ def engine_phase(torch, np, llama, ragged, pa):
     param_bytes = sum(t.numel() * t.element_size() for t in
                       [eng.params["embed"], eng.params["final_norm"], eng.params["lm_head"],
                        *eng.params["layers"].values()])
-    pool_bytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    pool_bytes = sum(eng.cache[k].numel() * eng.cache[k].element_size() for k in ("k", "v"))
     emit("engine_init", model="llama3_8b", layers=cfg.num_layers, hidden=cfg.hidden_size,
          vocab=cfg.vocab_size, num_params=llama.num_params(cfg), param_bytes=param_bytes,
          kv_pool_bytes=pool_bytes, ragged_config=ENGINE, init_s=time.perf_counter() - t0)
@@ -942,7 +1051,10 @@ def main() -> int:
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     smem = {}
-    for name, symbol, args in (("paged_decode", "dstpu_paged_decode_smem_bytes", (HQ, HKV, D, BS)),
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = pa.decode_splits(32, HKV, MB, sms)  # at decode_case's 32 tokens
+    for name, symbol, args in (("paged_decode", "dstpu_paged_decode_smem_bytes",
+                                (HQ, HKV, D, 1, -(-MB // splits))),
                                ("paged_prefill", "dstpu_paged_prefill_smem_bytes", (D, BS, 1)),
                                ("flash_fwd", "dstpu_flash_fwd_smem_bytes", (FD, 1)),
                                ("flash_dkdv", "dstpu_flash_dkdv_smem_bytes", (FD, 1)),
@@ -951,14 +1063,15 @@ def main() -> int:
         fn = getattr(_build.load(lib), symbol)
         fn.restype = ctypes.c_size_t
         smem[name] = fn(*args)
-    emit("build", seconds=build_s,
+    emit("build", seconds=build_s, nvcc_seconds=dict(_build.BUILD_SECONDS),
          libraries={n: os.path.relpath(p) for n, p in libs.items()},
          ptxas={n: _build.ptxas_report(n) for n in libs},
          dynamic_smem_bytes_at_cell_shapes=smem)
 
-    # 3. kernels vs plain versions, times and bounds
+    # 3. kernels vs plain versions, times and bounds; other head dims
     times = kernel_phase(torch, np, pa)
     times.update(flash_kernel_phase(torch, fa))
+    head_dims_phase(torch, np, pa, fa, llama, engine_mod)
 
     # 4. the serving path, and 5. its parity
     launches = engine_phase(torch, np, llama, ragged, pa)

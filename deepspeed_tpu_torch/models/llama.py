@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_loss
-from deepspeed_tpu_torch.models.paged import ragged_pool_attention, write_kv_paged
+from deepspeed_tpu_torch.models.paged import (init_decode_workspace, ragged_pool_attention,
+                                              write_kv_paged)
 from deepspeed_tpu_torch.ops.attention import apply_rope, attention
 
 
@@ -166,14 +167,21 @@ def loss_fn(cfg: LlamaConfig, params: dict, batch: dict, generator=None,
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device="cpu") -> dict:
     """Blocked KV pool, stacked [L, num_blocks, block_size, Hkv, Dh]; block 0
-    is the scratch block padding tokens write into."""
+    is the scratch block padding tokens write into. On a CUDA device the
+    cache also holds the decode kernel's workspace (``"decode_workspace"``),
+    which every layer's decode shares."""
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    workspace = init_decode_workspace(cfg.num_heads, cfg.num_kv_heads, cfg.hd, device)
+    if workspace is not None:
+        cache["decode_workspace"] = workspace
+    return cache
 
 
 def _ragged_layer(cfg: LlamaConfig, x, lp, kc, vc, positions, slots,
-                  block_tables, prefill_tiles=None, attn_impl: str = "auto"):
+                  block_tables, prefill_tiles=None, attn_impl: str = "auto",
+                  workspace=None):
     """One decoder layer over a flat ragged token batch ``x`` [T, D] that mixes
     prefill-chunk tokens and decode tokens of different sequences. New KV is
     scattered into the pool (in place) *before* attention, so intra-chunk
@@ -191,7 +199,7 @@ def _ragged_layer(cfg: LlamaConfig, x, lp, kc, vc, positions, slots,
 
     write_kv_paged(kc, vc, kk, vv, slots, positions, block_tables)
     o = ragged_pool_attention(q, kc, vc, slots, positions, block_tables,
-                              prefill_tiles, impl=attn_impl).to(x.dtype)
+                              prefill_tiles, impl=attn_impl, workspace=workspace).to(x.dtype)
     x = x + o.reshape(t_tokens, hq * hd) @ lp["wo"]
 
     h = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
@@ -215,7 +223,8 @@ def ragged_forward(cfg: LlamaConfig, params, tokens, slots, positions,
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
         x = _ragged_layer(cfg, x, lp, cache["k"][i], cache["v"][i], positions,
-                          slots, block_tables, prefill_tiles, attn_impl)
+                          slots, block_tables, prefill_tiles, attn_impl,
+                          cache.get("decode_workspace"))
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     logits = x @ lm_head(cfg, params).to(x.dtype)
     return logits, cache

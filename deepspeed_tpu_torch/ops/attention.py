@@ -76,11 +76,16 @@ def attention(q, k, v, causal: bool = True, bias=None, scale: float | None = Non
 
 
 def paged_attention(q, k_pool, v_pool, slots, positions, block_tables,
-                    scale: float | None = None, impl: str = "auto"):
+                    scale: float | None = None, impl: str = "auto", workspace=None):
     """Ragged paged-KV attention: [T, Hq, D] tokens over the blocked pool,
-    token t attending positions 0..positions[t] of table row slots[t]."""
-    fn = _pick(impl, _paged.paged_decode_attention, _paged.paged_decode_attention_ref)
-    return fn(q, k_pool, v_pool, slots, positions, block_tables, scale=scale)
+    token t attending positions 0..positions[t] of table row slots[t].
+    ``workspace``: the kernel's ``DecodeWorkspace`` (the plain version needs
+    none)."""
+    if _pick(impl, True, False):
+        return _paged.paged_decode_attention(q, k_pool, v_pool, slots, positions,
+                                             block_tables, scale=scale, workspace=workspace)
+    return _paged.paged_decode_attention_ref(q, k_pool, v_pool, slots, positions,
+                                             block_tables, scale=scale)
 
 
 def ragged_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0,

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -34,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# seconds nvcc took for each source this process compiled
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -75,7 +78,9 @@ def build(name: str) -> Path:
     os.close(fd)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             raise KernelBuildError(
                 f"nvcc failed for {name} (rc {proc.returncode}):\n{proc.stderr}")
@@ -112,10 +117,15 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 def ptxas_report(name: str) -> list[dict]:
     """Per-kernel registers, static shared memory and spills from the
     ``-Xptxas -v`` log of the built library."""
-    log = library_path(name).with_suffix(".log")
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
+
+
+def parse_ptxas(log: str) -> list[dict]:
+    """Per-kernel registers, static shared memory and spills from the text
+    ``-Xptxas -v`` prints."""
     rows: list[dict] = []
     cur: dict | None = None
-    for line in log.read_text().splitlines():
+    for line in log.splitlines():
         m = _ENTRY.search(line)
         if m:
             cur = {"function": m.group(1)}

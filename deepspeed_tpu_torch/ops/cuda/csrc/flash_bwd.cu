@@ -27,10 +27,12 @@
 // - dQ: a CTA owns a q tile of one (batch, q-head), loops over the kv tiles
 //   its rows can see, with dQ in registers, and writes dQ once.
 // CTAs with more tiles to visit are launched first. Each kernel comes in
-// two forms, chosen by dtype. fp32 runs CUDA-core FMAs (flash_common.cuh:
-// 256 threads of 4 rows x D/16 columns, 64-row tiles): fp32 checks hold it
-// to 1e-4, which rules out TF32. bf16 (the training path) runs
-// warp-specialised `wgmma` fed by TMA (hopper.cuh, namespace wg), 384
+// two forms, chosen by dtype and head dim. fp32, and bf16 at head dims
+// other than 64 and 128, run CUDA-core FMAs (flash_common.cuh: 256 threads
+// of 4 rows x D/16 columns of the padded head dim D, 64-row tiles, or at D
+// = 256 32-row tiles of what the kernel loops over): fp32 checks hold it to
+// 1e-4, which rules out TF32. bf16 at d = 64 and 128 (the training path)
+// runs warp-specialised `wgmma` fed by TMA (hopper.cuh, namespace wg), 384
 // threads: a producer warpgroup, of which one warp (dQ: one thread) streams
 // tiles through a ring in shared memory (128-byte swizzled, full / empty
 // mbarriers), and two consumer warpgroups of 64 rows each; setmaxnreg moves
@@ -57,7 +59,6 @@
 namespace {
 
 using dstpu::flash::kBlock;
-using dstpu::flash::kLP;
 using dstpu::flash::kThreads;
 using dstpu::flash::Strides;
 
@@ -70,25 +71,28 @@ __device__ __forceinline__ float dq_score(float p, float dp, float delta, float 
   return p * (dp - delta) * scale;
 }
 
-template <typename T, int D>
+// QB: q rows of a q tile (64, or 32 where 64 do not fit in shared memory)
+template <typename T, int D, int QB>
 __global__ void __launch_bounds__(kThreads)
 flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ dout, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                   Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                  int hq, int hkv, int n_q, int n_kv, int causal, float scale) {
+                  int hq, int hkv, int n_q, int n_kv, int d, int causal, float scale) {
   namespace fl = dstpu::flash;
   constexpr int LD = D + fl::kPad;
   constexpr int G = D / 64;
+  constexpr int J = QB / 16;          // q columns of a thread's score tile
+  constexpr int LP = QB + fl::kPad;   // row stride of p^T and ds^T
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
   float* vs = ks + kBlock * LD;
   float* qs = vs + kBlock * LD;
-  float* dos = qs + kBlock * LD;
-  float* pts = dos + kBlock * LD;  // p^T  [key][q]
-  float* dts = pts + kBlock * kLP;  // ds^T [key][q]
-  float* lse_s = dts + kBlock * kLP;
-  float* delta_s = lse_s + kBlock;
+  float* dos = qs + QB * LD;
+  float* pts = dos + QB * LD;  // p^T  [key][q]
+  float* dts = pts + kBlock * LP;  // ds^T [key][q]
+  float* lse_s = dts + kBlock * LP;
+  float* delta_s = lse_s + QB;
 
   const int kb = blockIdx.x;  // the first key tiles see the most q tiles
   const int kvh = blockIdx.y;
@@ -98,8 +102,8 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int ty = threadIdx.x >> 4;
   const int k0 = kb * kBlock;
 
-  fl::load_tile<T, D>(ks, k, sk, b, kvh, k0, n_kv, 1.f);
-  fl::load_tile<T, D>(vs, v, sv, b, kvh, k0, n_kv, 1.f);
+  fl::load_tile<T, D>(ks, k, sk, b, kvh, k0, n_kv, d, 1.f);
+  fl::load_tile<T, D>(vs, v, sv, b, kvh, k0, n_kv, d, 1.f);
 
   float dk_acc[4][4 * G], dv_acc[4][4 * G];
 #pragma unroll
@@ -107,64 +111,67 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
     for (int c = 0; c < 4 * G; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int n_qb = (n_q + kBlock - 1) / kBlock;
-  const int first_qb = causal ? k0 / kBlock : 0;  // q tiles ending before k0 see none of these keys
+  const int n_qb = (n_q + QB - 1) / QB;
+  const int first_qb = causal ? k0 / QB : 0;  // q tiles ending before k0 see none of these keys
   for (int h = kvh * rep; h < (kvh + 1) * rep; ++h) {
     const long long row_base = ((long long)b * hq + h) * n_q;
     for (int i = first_qb; i < n_qb; ++i) {
-      const int q0 = i * kBlock;
+      const int q0 = i * QB;
       __syncthreads();  // every warp is done with the previous q / dO tiles
-      fl::load_tile<T, D>(qs, q, sq, b, h, q0, n_q, 1.f);
-      fl::load_tile<T, D>(dos, dout, sdo, b, h, q0, n_q, 1.f);
-      fl::load_rows(lse_s, lse + row_base, q0, n_q);
-      fl::load_rows(delta_s, delta + row_base, q0, n_q);
+      fl::load_tile<T, D, QB>(qs, q, sq, b, h, q0, n_q, d, 1.f);
+      fl::load_tile<T, D, QB>(dos, dout, sdo, b, h, q0, n_q, d, 1.f);
+      fl::load_rows<QB>(lse_s, lse + row_base, q0, n_q);
+      fl::load_rows<QB>(delta_s, delta + row_base, q0, n_q);
       __syncthreads();
 
       // s^T and dp^T: rows are this CTA's keys ty + 16 a, columns q rows tx + 16 c
-      float s[4][4], dp[4][4];
-      fl::tile_nt<D>(s, ks, LD, qs, LD, ty, tx);
-      fl::tile_nt<D>(dp, vs, LD, dos, LD, ty, tx);
+      float s[4][J], dp[4][J];
+      fl::tile_nt<D, 4, J>(s, ks, LD, qs, LD, ty, tx);
+      fl::tile_nt<D, 4, J>(dp, vs, LD, dos, LD, ty, tx);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int key = ty + 16 * a;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < J; ++c) {
           const int qr = tx + 16 * c;
           const float sc =
               hidden(q0 + qr, k0 + key, n_q, n_kv, causal) ? dstpu::kNegInf : s[a][c] * scale;
           const float p = expf(sc - lse_s[qr]);
-          pts[key * kLP + qr] = p;
-          dts[key * kLP + qr] = p * (dp[a][c] - delta_s[qr]) * scale;
+          pts[key * LP + qr] = p;
+          dts[key * LP + qr] = p * (dp[a][c] - delta_s[qr]) * scale;
         }
       }
       __syncwarp();  // a row of p^T / ds^T is read back only by the half-warp that wrote it
-      fl::tile_nn<kBlock, G>(dv_acc, pts, kLP, dos, LD, ty, tx);
-      fl::tile_nn<kBlock, G>(dk_acc, dts, kLP, qs, LD, ty, tx);
+      fl::tile_nn<QB, G>(dv_acc, pts, LP, dos, LD, ty, tx);
+      fl::tile_nn<QB, G>(dk_acc, dts, LP, qs, LD, ty, tx);
     }
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  fl::store_rows<T, G>(dk, sdk, b, kvh, k0, n_kv, dk_acc, one, ty, tx);
-  fl::store_rows<T, G>(dv, sdv, b, kvh, k0, n_kv, dv_acc, one, ty, tx);
+  fl::store_rows<T, G>(dk, sdk, b, kvh, k0, n_kv, d, dk_acc, one, ty, tx);
+  fl::store_rows<T, G>(dv, sdv, b, kvh, k0, n_kv, d, dv_acc, one, ty, tx);
 }
 
-template <typename T, int D>
+// KB: keys of a kv tile (64, or 32 where 64 do not fit in shared memory)
+template <typename T, int D, int KB>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk,
                 Strides sv, Strides sdo, Strides sdq, int hq, int hkv, int n_q, int n_kv,
-                int causal, float scale) {
+                int d, int causal, float scale) {
   namespace fl = dstpu::flash;
   constexpr int LD = D + fl::kPad;
   constexpr int G = D / 64;
+  constexpr int J = KB / 16;          // key columns of a thread's score tile
+  constexpr int LS = KB + fl::kPad;   // row stride of ds
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* dos = qs + kBlock * LD;
   float* ks = dos + kBlock * LD;
-  float* vs = ks + kBlock * LD;
-  float* dss = vs + kBlock * LD;  // ds [q][key]
-  float* lse_s = dss + kBlock * kLP;
+  float* vs = ks + KB * LD;
+  float* dss = vs + KB * LD;  // ds [q][key]
+  float* lse_s = dss + kBlock * LS;
   float* delta_s = lse_s + kBlock;
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // longest rows first
@@ -176,8 +183,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int q0 = qb * kBlock;
   const long long row_base = ((long long)b * hq + h) * n_q;
 
-  fl::load_tile<T, D>(qs, q, sq, b, h, q0, n_q, 1.f);
-  fl::load_tile<T, D>(dos, dout, sdo, b, h, q0, n_q, 1.f);
+  fl::load_tile<T, D>(qs, q, sq, b, h, q0, n_q, d, 1.f);
+  fl::load_tile<T, D>(dos, dout, sdo, b, h, q0, n_q, d, 1.f);
   fl::load_rows(lse_s, lse + row_base, q0, n_q);
   fl::load_rows(delta_s, delta + row_base, q0, n_q);
 
@@ -187,36 +194,36 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
     for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.f;
 
-  int n_blocks = (n_kv + kBlock - 1) / kBlock;
-  if (causal) n_blocks = min(n_blocks, (q0 + kBlock - 1) / kBlock + 1);
+  int n_blocks = (n_kv + KB - 1) / KB;
+  if (causal) n_blocks = min(n_blocks, (q0 + kBlock - 1) / KB + 1);
   for (int j = 0; j < n_blocks; ++j) {
-    const int k0 = j * kBlock;
+    const int k0 = j * KB;
     __syncthreads();  // every warp is done with the previous k / v tiles
-    fl::load_tile<T, D>(ks, k, sk, b, kvh, k0, n_kv, 1.f);
-    fl::load_tile<T, D>(vs, v, sv, b, kvh, k0, n_kv, 1.f);
+    fl::load_tile<T, D, KB>(ks, k, sk, b, kvh, k0, n_kv, d, 1.f);
+    fl::load_tile<T, D, KB>(vs, v, sv, b, kvh, k0, n_kv, d, 1.f);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    fl::tile_nt<D>(s, qs, LD, ks, LD, ty, tx);
-    fl::tile_nt<D>(dp, dos, LD, vs, LD, ty, tx);
+    float s[4][J], dp[4][J];
+    fl::tile_nt<D, 4, J>(s, qs, LD, ks, LD, ty, tx);
+    fl::tile_nt<D, 4, J>(dp, dos, LD, vs, LD, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = ty + 16 * i;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < J; ++c) {
         const int key = tx + 16 * c;
         const float sc =
             hidden(q0 + qr, k0 + key, n_q, n_kv, causal) ? dstpu::kNegInf : s[i][c] * scale;
         const float p = expf(sc - lse_s[qr]);
-        dss[qr * kLP + key] = dq_score(p, dp[i][c], delta_s[qr], scale);
+        dss[qr * LS + key] = dq_score(p, dp[i][c], delta_s[qr], scale);
       }
     }
     __syncwarp();  // a row of ds is read back only by the half-warp that wrote it
-    fl::tile_nn<kBlock, G>(acc, dss, kLP, ks, LD, ty, tx);
+    fl::tile_nn<KB, G>(acc, dss, LS, ks, LD, ty, tx);
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  fl::store_rows<T, G>(dq, sdq, b, h, q0, n_q, acc, one, ty, tx);
+  fl::store_rows<T, G>(dq, sdq, b, h, q0, n_q, d, acc, one, ty, tx);
 }
 
 // ------------------------------------------------ bf16 dK/dV: wgmma
@@ -593,44 +600,70 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 }  // namespace wg
 
-constexpr size_t dkdv_smem_bytes(int d) { return dstpu::flash::smem_bytes(d, 4, 2, 2); }
-constexpr size_t dq_smem_bytes(int d) { return dstpu::flash::smem_bytes(d, 4, 1, 2); }
+// Rows of the tile a CUDA-core kernel loops over (dK/dV: q rows; dQ: keys):
+// 64, or 32 at D = 256, where four 64-row tiles do not fit in shared memory.
+constexpr int loop_rows(int d) { return d > 128 ? 32 : kBlock; }
+// k, v, q, dO tiles, p^T and ds^T [64 keys][loop rows], lse and delta
+constexpr size_t dkdv_smem_bytes(int d) {
+  return dstpu::flash::smem_bytes(d, 2 * kBlock + 2 * loop_rows(d), 2 * kBlock, loop_rows(d),
+                                  2 * loop_rows(d));
+}
+// q, dO, k, v tiles, ds [64 q rows][loop rows], lse and delta
+constexpr size_t dq_smem_bytes(int d) {
+  return dstpu::flash::smem_bytes(d, 2 * kBlock + 2 * loop_rows(d), kBlock, loop_rows(d),
+                                  2 * kBlock);
+}
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
   Strides st[6];  // q, k, v, dO, then dK, dV (dkdv) or dQ (dq)
-  int b, n_q, n_kv, hq, hkv, causal;
+  int b, n_q, n_kv, hq, hkv, d, causal;
   float scale;
 };
 
 template <typename T, int D>
 cudaError_t launch_dkdv(const Args& a, cudaStream_t stream) {
+  constexpr int QB = loop_rows(D);
   const size_t smem = dkdv_smem_bytes(D);
-  cudaError_t err = dstpu::allow_smem(flash_dkdv_kernel<T, D>, smem);
+  cudaError_t err = dstpu::allow_smem(flash_dkdv_kernel<T, D, QB>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_kv + kBlock - 1) / kBlock, a.hkv, a.b);
-  flash_dkdv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_dkdv_kernel<T, D, QB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.hq, a.hkv, a.n_q, a.n_kv,
+      a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.hq, a.hkv, a.n_q, a.n_kv, a.d,
       a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr int KB = loop_rows(D);
   const size_t smem = dq_smem_bytes(D);
-  cudaError_t err = dstpu::allow_smem(flash_dq_kernel<T, D>, smem);
+  cudaError_t err = dstpu::allow_smem(flash_dq_kernel<T, D, KB>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + kBlock - 1) / kBlock, a.hq, a.b);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_dq_kernel<T, D, KB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.st[0], a.st[1], a.st[2],
-      a.st[3], a.st[4], a.hq, a.hkv, a.n_q, a.n_kv, a.causal, a.scale);
+      a.st[3], a.st[4], a.hq, a.hkv, a.n_q, a.n_kv, a.d, a.causal, a.scale);
   return cudaGetLastError();
+}
+
+// the CUDA-core dK/dV or dQ kernel at the padded head dim of a.d
+template <typename T>
+cudaError_t launch_padded(bool dkdv, const Args& a, cudaStream_t s) {
+  switch (dstpu::flash::padded_dim(a.d)) {
+    case 64:
+      return dkdv ? launch_dkdv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
+    case 128:
+      return dkdv ? launch_dkdv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+    default:
+      return dkdv ? launch_dkdv<T, 256>(a, s) : launch_dq<T, 256>(a, s);
+  }
 }
 
 template <int D>
@@ -675,26 +708,28 @@ cudaError_t launch_dq_wgmma(const Args& a, const unsigned long long* layouts,
   return cudaGetLastError();
 }
 
-// layouts: the bf16 kernels' tensor maps (q, k, v, dO), else unused
-cudaError_t dispatch(bool dkdv, const Args& a, int d, int dtype,
-                     const unsigned long long* layouts, cudaStream_t s) {
-  if (dtype == 0 && d == 64) return dkdv ? launch_dkdv<float, 64>(a, s) : launch_dq<float, 64>(a, s);
-  if (dtype == 0 && d == 128) return dkdv ? launch_dkdv<float, 128>(a, s) : launch_dq<float, 128>(a, s);
+// layouts: the wgmma kernels' tensor maps (q, k, v, dO), else unused
+cudaError_t dispatch(bool dkdv, const Args& a, int dtype, const unsigned long long* layouts,
+                     cudaStream_t s) {
+  const int d = a.d;
+  if (d < 8 || d > 256 || d % 8) return cudaErrorInvalidValue;
   if (dtype == 1 && d == 64)
     return dkdv ? launch_dkdv_wgmma<64>(a, layouts, s) : launch_dq_wgmma<64>(a, layouts, s);
   if (dtype == 1 && d == 128)
     return dkdv ? launch_dkdv_wgmma<128>(a, layouts, s) : launch_dq_wgmma<128>(a, layouts, s);
+  if (dtype == 0) return launch_padded<float>(dkdv, a, s);
+  if (dtype == 1) return launch_padded<__nv_bfloat16>(dkdv, a, s);
   return cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const long long* strides, int n_strided, int b, int n_q,
-               int n_kv, int hq, int hkv, int causal, float scale) {
+               int n_kv, int hq, int hkv, int d, int causal, float scale) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   for (int t = 0; t < n_strided; ++t)
     a.st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  a.b = b; a.n_q = n_q; a.n_kv = n_kv; a.hq = hq; a.hkv = hkv; a.causal = causal;
+  a.b = b; a.n_q = n_q; a.n_kv = n_kv; a.hq = hq; a.hkv = hkv; a.d = d; a.causal = causal;
   a.scale = scale;
   return a;
 }
@@ -702,10 +737,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 }  // namespace
 
 // strides: element strides (batch, seq, head) of q, k, v, dO, dK, dV in turn
-// (18 values). layouts (bf16 only): the tensor maps of q, k, v, dO in turn,
-// each dims (D, S, H, B) then byte strides (S, H, B) (28 values). lse,
-// delta: contiguous fp32 [B, Hq, Sq]. dtype: 0 = float32, 1 = bfloat16; d:
-// 64 or 128. Returns a cudaError_t (0 = launched).
+// (18 values). layouts (bf16 at d = 64 or 128 only): the tensor maps of q,
+// k, v, dO in turn, each dims (D, S, H, B) then byte strides (S, H, B) (28
+// values). lse, delta: contiguous fp32 [B, Hq, Sq]. dtype: 0 = float32, 1 =
+// bfloat16; d: a multiple of 8 from 8 to 256 (bf16 at 64 and 128: the wgmma
+// kernels; else the CUDA-core kernels at the padded head dim). Returns a
+// cudaError_t (0 = launched).
 extern "C" int dstpu_flash_dkdv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv,
                                 const long long* strides, const unsigned long long* layouts,
@@ -713,10 +750,11 @@ extern "C" int dstpu_flash_dkdv(const void* q, const void* k, const void* v, con
                                 float scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Args a = make_args(q, k, v, dout, lse, delta, strides, 6, b, n_q, n_kv, hq, hkv, causal, scale);
+  Args a =
+      make_args(q, k, v, dout, lse, delta, strides, 6, b, n_q, n_kv, hq, hkv, d, causal, scale);
   a.dk = dk;
   a.dv = dv;
-  return (int)dispatch(true, a, d, dtype, layouts, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(true, a, dtype, layouts, static_cast<cudaStream_t>(stream));
 }
 
 // strides: element strides of q, k, v, dO, dQ in turn (15 values).
@@ -728,15 +766,18 @@ extern "C" int dstpu_flash_dq(const void* q, const void* k, const void* v, const
                               float scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Args a = make_args(q, k, v, dout, lse, delta, strides, 5, b, n_q, n_kv, hq, hkv, causal, scale);
+  Args a =
+      make_args(q, k, v, dout, lse, delta, strides, 5, b, n_q, n_kv, hq, hkv, d, causal, scale);
   a.dq = dq;
-  return (int)dispatch(false, a, d, dtype, layouts, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(false, a, dtype, layouts, static_cast<cudaStream_t>(stream));
 }
 
-// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (wgmma kernels)
+// dtype: 0 = float32, 1 = bfloat16 (the wgmma kernels at d = 64 or 128)
 extern "C" size_t dstpu_flash_dkdv_smem_bytes(int d, int dtype) {
-  return dtype == 1 ? wg::smem_bytes(d) : dkdv_smem_bytes(d);
+  return dtype == 1 && (d == 64 || d == 128) ? wg::smem_bytes(d)
+                                             : dkdv_smem_bytes(dstpu::flash::padded_dim(d));
 }
 extern "C" size_t dstpu_flash_dq_smem_bytes(int d, int dtype) {
-  return dtype == 1 ? wg::dq_smem_bytes(d) : dq_smem_bytes(d);
+  return dtype == 1 && (d == 64 || d == 128) ? wg::dq_smem_bytes(d)
+                                             : dq_smem_bytes(dstpu::flash::padded_dim(d));
 }

@@ -1,6 +1,13 @@
 // Shared core of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
 // 64-row tiles of q, k, v and dO staged in shared memory as fp32, and two
-// register-tiled products over them on the CUDA cores.
+// register-tiled products over them on the CUDA cores. These kernels serve
+// fp32 at every head dim and bf16 at the head dims the wgmma kernels do not
+// take. They are compiled for padded head dims D in {64, 128, 256}: a head
+// dim d <= D is read zero-filled past d (a zero column adds nothing to a
+// dot) and written masked to d, and the caller's softmax scale is 1 /
+// sqrt(d), never the bucket's. Where four 64-row D = 256 tiles do not fit
+// in shared memory, the backward kernels take 32-row tiles of the operand
+// they loop over.
 //
 // Layout: q, o, dO [B, Sq, Hq, D] and k, v [B, Skv, Hkv, D], read through
 // their element strides (batch, sequence, head; the head dim is contiguous),
@@ -47,19 +54,20 @@ __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
 }
 
-// Stage rows row0 .. row0 + 63 of head h, batch b into a shared [64][D + kPad]
-// fp32 tile, each element times `mul`; rows at or past n_rows are zeros.
-template <typename T, int D>
+// Stage rows row0 .. row0 + ROWS - 1 of head h, batch b into a shared
+// [ROWS][D + kPad] fp32 tile, each element times `mul`; rows at or past
+// n_rows and columns at or past d are zeros.
+template <typename T, int D, int ROWS = kBlock>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, Strides st,
-                                          int b, int h, int row0, int n_rows, float mul) {
+                                          int b, int h, int row0, int n_rows, int d, float mul) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
   const T* base = src + b * st.b + h * st.h;
-  for (int i = threadIdx.x; i < kBlock * PER_ROW; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += kThreads) {
     const int r = i / PER_ROW;
     const int c = (i - r * PER_ROW) * VEC;
     float f[VEC];
-    if (row0 + r < n_rows) {
+    if (row0 + r < n_rows && c < d) {
       load16(base + (long long)(row0 + r) * st.s + c, f);
     } else {
 #pragma unroll
@@ -73,33 +81,34 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-// 64 entries of a contiguous fp32 row vector (lse or delta); zeros past n.
+// ROWS entries of a contiguous fp32 row vector (lse or delta); zeros past n.
+template <int ROWS = kBlock>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
                                           int n) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads)
+  for (int i = threadIdx.x; i < ROWS; i += kThreads)
     dst[i] = row0 + i < n ? src[row0 + i] : 0.f;
 }
 
 // c[i][j] = sum_{x < N} A[(ty + 16 i) * lda + x] * B[(tx + 16 j) * ldb + x]:
-// a 64 x 64 tile of A B^T, both operands row-major in shared memory.
-template <int N>
-__device__ __forceinline__ void tile_nt(float (&c)[4][4], const float* A, int lda,
+// a (16 I) x (16 J) tile of A B^T, both operands row-major in shared memory.
+template <int N, int I = 4, int J = 4>
+__device__ __forceinline__ void tile_nt(float (&c)[I][J], const float* A, int lda,
                                         const float* B, int ldb, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) c[i][j] = 0.f;
 #pragma unroll 2
   for (int x = 0; x < N; x += 4) {
-    float4 a[4], bv[4];
+    float4 a[I], bv[J];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + x);
+    for (int i = 0; i < I; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * lda + x);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * ldb + x);
+    for (int j = 0; j < J; ++j) bv[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * ldb + x);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < J; ++j) {
         float t = c[i][j];
         t = fmaf(a[i].x, bv[j].x, t);
         t = fmaf(a[i].y, bv[j].y, t);
@@ -152,12 +161,13 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // Write the thread's 4 x (4 G) accumulator tile, rows row0 + ty + 16 i of
-// head h of [B, S, H, D] `dst`, times `mul`; rows at or past n_rows are
-// skipped.
+// head h of [B, S, H, D] `dst`, times `mul`; rows at or past n_rows and
+// columns at or past d (a multiple of 4) are skipped.
 template <typename T, int G>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides st, int b, int h,
-                                           int row0, int n_rows, const float (&c)[4][4 * G],
-                                           const float (&mul)[4], int ty, int tx) {
+                                           int row0, int n_rows, int d,
+                                           const float (&c)[4][4 * G], const float (&mul)[4],
+                                           int ty, int tx) {
   T* base = dst + b * st.b + h * st.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -165,18 +175,25 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst, Strides st, int 
     if (r >= n_rows) continue;
     T* row = base + (long long)r * st.s;
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g) {
+      if (g * 64 + tx * 4 >= d) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) row[g * 64 + tx * 4 + e] = from_float<T>(c[i][g * 4 + e] * mul[i]);
+    }
   }
 }
 
-// Shared bytes of a kernel staging `tiles` [64][D + kPad] tiles, `scores`
-// [64][64 + kPad] tiles and `vecs` 64-float row vectors.
-__host__ __device__ constexpr size_t smem_bytes(int d, int tiles, int scores, int vecs) {
-  return sizeof(float) * ((size_t)tiles * kBlock * (d + kPad) + (size_t)scores * kBlock * kLP +
-                          (size_t)vecs * kBlock);
+// Shared bytes of a kernel staging `rows` rows of [.][D + kPad] tiles in
+// all, `score_rows` rows of [.][cols + kPad] score tiles and `vecs` floats
+// of row vectors (lse, delta).
+__host__ __device__ constexpr size_t smem_bytes(int d, int rows, int score_rows, int cols,
+                                                int vecs) {
+  return sizeof(float) * ((size_t)rows * (d + kPad) + (size_t)score_rows * (cols + kPad) +
+                          (size_t)vecs);
 }
+
+// The padded head dim a CUDA-core kernel is compiled for: 64, 128 or 256.
+__host__ __device__ constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
 }  // namespace flash
 }  // namespace dstpu

@@ -22,9 +22,10 @@
 // strictly above the diagonal are never loaded. GQA maps head h to kv head
 // h / (Hq / Hkv) without replicating k or v. CTAs with more visible kv tiles
 // are launched first, the q-heads of a GQA group side by side (their k and v
-// tiles meet in L2). Two kernels, chosen by dtype:
-// - bf16 (the training path, namespace fw): warp-specialised `wgmma` fed by
-//   TMA (hopper.cuh). 384 threads: a producer warpgroup, of which one thread
+// tiles meet in L2). Two kernels, chosen by dtype and head dim:
+// - bf16 at d = 64 or 128 (the training path, namespace fw): warp-
+//   specialised `wgmma` fed by TMA (hopper.cuh). 384 threads: a producer
+//   warpgroup, of which one thread
 //   loads the CTA's 128 q rows once and keeps TMA loads of the next 64-key
 //   k and v tiles in flight in a 4-stage ring (full / empty mbarriers), and
 //   two consumer warpgroups of 64 q rows each. A consumer computes
@@ -34,10 +35,11 @@
 //   MN-major with the transpose bit: nothing is staged transposed. S of the
 //   next tile is issued before P v of this one, so its softmax overlaps the
 //   product in flight. setmaxnreg moves registers to the consumers.
-// - fp32: CUDA-core FMAs in fp32 throughout (flash_common.cuh), 256
-//   threads each holding 4 rows x D/16 columns; q is scaled before the
-//   dot, as the Pallas kernel does. fp32 checks hold it to 1e-4, which rules
-//   out TF32.
+// - fp32, and bf16 at every other head dim: CUDA-core FMAs in fp32
+//   throughout (flash_common.cuh, bf16 widened as it is staged), 256 threads
+//   each holding 4 rows x D/16 columns of the padded head dim D (64, 128 or
+//   256); q is scaled before the dot, as the Pallas kernel does. fp32 checks
+//   hold it to 1e-4, which rules out TF32.
 
 #include "flash_common.cuh"
 #include "flash_mma.cuh"
@@ -59,7 +61,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-                 Strides so, int hq, int hkv, int n_q, int n_kv, int causal, float scale) {
+                 Strides so, int hq, int hkv, int n_q, int n_kv, int d, int causal,
+                 float scale) {
   namespace fl = dstpu::flash;
   constexpr int LD = D + fl::kPad;
   constexpr int G = D / 64;
@@ -77,7 +80,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int ty = threadIdx.x >> 4;
   const int q0 = qb * kBlock;
 
-  fl::load_tile<T, D>(qs, q, sq, b, h, q0, n_q, scale);
+  fl::load_tile<T, D>(qs, q, sq, b, h, q0, n_q, d, scale);
 
   float m[4], l[4], acc[4][4 * G];
 #pragma unroll
@@ -93,8 +96,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int j = 0; j < n_blocks; ++j) {
     const int k0 = j * kBlock;
     __syncthreads();  // every warp is done with the previous k / v tiles
-    fl::load_tile<T, D>(ks, k, sk, b, kvh, k0, n_kv, 1.f);
-    fl::load_tile<T, D>(vs, v, sv, b, kvh, k0, n_kv, 1.f);
+    fl::load_tile<T, D>(ks, k, sk, b, kvh, k0, n_kv, d, 1.f);
+    fl::load_tile<T, D>(vs, v, sv, b, kvh, k0, n_kv, d, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -135,7 +138,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = q0 + ty + 16 * i;
     if (tx == 0 && r < n_q) lse[((long long)b * hq + h) * n_q + r] = m[i] + logf(safe_l);
   }
-  fl::store_rows<T, G>(o, so, b, h, q0, n_q, acc, inv, ty, tx);
+  fl::store_rows<T, G>(o, so, b, h, q0, n_q, d, acc, inv, ty, tx);
 }
 
 // ------------------------------------------------ bf16: wgmma, TMA ring
@@ -325,20 +328,39 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 }  // namespace fw
 
-constexpr size_t smem_bytes(int d) { return dstpu::flash::smem_bytes(d, 3, 1, 0); }
+// q, k, v tiles and one score tile
+constexpr size_t smem_bytes(int d) {
+  return dstpu::flash::smem_bytes(d, 3 * kBlock, kBlock, kBlock, 0);
+}
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   const Strides* st, int b, int n_q, int n_kv, int hq, int hkv, int causal,
-                   float scale, cudaStream_t stream) {
+                   const Strides* st, int b, int n_q, int n_kv, int hq, int hkv, int d,
+                   int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   cudaError_t err = dstpu::allow_smem(flash_fwd_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_q + kBlock - 1) / kBlock, hq, b);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], hq, hkv, n_q, n_kv, causal, scale);
+      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], hq, hkv, n_q, n_kv, d, causal,
+      scale);
   return cudaGetLastError();
+}
+
+// the CUDA-core kernel at the padded head dim of d
+template <typename T>
+cudaError_t launch_padded(const void* q, const void* k, const void* v, void* o, float* lse,
+                          const Strides* st, int b, int n_q, int n_kv, int hq, int hkv, int d,
+                          int causal, float scale, cudaStream_t s) {
+  switch (dstpu::flash::padded_dim(d)) {
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, st, b, n_q, n_kv, hq, hkv, d, causal, scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, st, b, n_q, n_kv, hq, hkv, d, causal, scale, s);
+    default:
+      return launch<T, 256>(q, k, v, o, lse, st, b, n_q, n_kv, hq, hkv, d, causal, scale, s);
+  }
 }
 
 // layouts: the tensor maps of q, k, v (7 values each, `tma_layout`)
@@ -366,9 +388,11 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) of q, k, v, o in turn.
-// layouts (bf16 only, else unused): the tensor maps of q, k, v in turn, each
-// dims (D, S, H, B) then byte strides (S, H, B) (21 values). dtype: 0 =
-// float32, 1 = bfloat16; d: 64 or 128. Returns a cudaError_t (0 = launched).
+// layouts (bf16 at d = 64 or 128 only, else unused): the tensor maps of q, k,
+// v in turn, each dims (D, S, H, B) then byte strides (S, H, B) (21 values).
+// dtype: 0 = float32, 1 = bfloat16; d: a multiple of 8 from 8 to 256 (bf16
+// at 64 and 128: the wgmma kernel; else the CUDA-core kernel at the padded
+// head dim). Returns a cudaError_t (0 = launched).
 extern "C" int dstpu_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                const long long* strides, const unsigned long long* layouts,
                                int b, int n_q, int n_kv, int hq, int hkv, int d, int causal,
@@ -379,20 +403,24 @@ extern "C" int dstpu_flash_fwd(const void* q, const void* k, const void* v, void
   for (int t = 0; t < 4; ++t) st[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && d == 64)
-    err = launch<float, 64>(q, k, v, o, l, st, b, n_q, n_kv, hq, hkv, causal, scale, s);
-  else if (dtype == 0 && d == 128)
-    err = launch<float, 128>(q, k, v, o, l, st, b, n_q, n_kv, hq, hkv, causal, scale, s);
+  if (d < 8 || d > 256 || d % 8)
+    err = cudaErrorInvalidValue;
   else if (dtype == 1 && d == 64)
     err = launch_wgmma<64>(q, k, v, o, l, st, layouts, b, n_q, n_kv, hq, hkv, causal, scale, s);
   else if (dtype == 1 && d == 128)
     err = launch_wgmma<128>(q, k, v, o, l, st, layouts, b, n_q, n_kv, hq, hkv, causal, scale, s);
+  else if (dtype == 0)
+    err = launch_padded<float>(q, k, v, o, l, st, b, n_q, n_kv, hq, hkv, d, causal, scale, s);
+  else if (dtype == 1)
+    err = launch_padded<__nv_bfloat16>(q, k, v, o, l, st, b, n_q, n_kv, hq, hkv, d, causal,
+                                       scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
 }
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel)
+// dtype: 0 = float32, 1 = bfloat16 (the wgmma kernel at d = 64 or 128)
 extern "C" size_t dstpu_flash_fwd_smem_bytes(int d, int dtype) {
-  return dtype == 1 ? fw::smem_bytes(d) : smem_bytes(d);
+  return dtype == 1 && (d == 64 || d == 128) ? fw::smem_bytes(d)
+                                             : smem_bytes(dstpu::flash::padded_dim(d));
 }

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels that stream their
-// operands asynchronously (paged_prefill.cu, flash_fwd.cu, flash_bwd.cu):
+// Hopper (sm_90a) building blocks of the kernels that stream their
+// operands asynchronously (paged_decode.cu, paged_prefill.cu, flash_fwd.cu,
+// flash_bwd.cu):
 //
 // - cp.async: 16-byte copies global -> shared that bypass registers, zero
 //   filled where the source is out of range, their completion tracked by
-//   an mbarrier;
+//   an mbarrier or by commit groups;
 // - ldmatrix: four 8 x 8 bf16 tiles from shared memory into the fragment
 //   layout of mma.sync (optionally transposed, so an operand whose other
 //   index is contiguous needs no transposed copy);
@@ -46,6 +47,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool f
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(fill ? 16 : 0)
                : "memory");
+}
+// close this thread's group of cp.async issued so far; wait until at most N
+// of its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // one arrival on mbarrier bar once all of this thread's cp.async so far
 // have landed (counts against the barrier's expected arrivals)

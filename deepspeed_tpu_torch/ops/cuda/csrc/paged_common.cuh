@@ -1,14 +1,16 @@
-// Shared core of the paged decode kernel (paged_decode.cu) and the fp32
-// prefill kernel (paged_prefill.cu): a CTA attends a set of query rows of
-// ONE sequence and ONE KV head over that sequence's blocks of the paged
-// pool, streaming one KV block at a time through shared memory with an fp32
-// online softmax.
+// The core of the fp32 prefill kernel (paged_prefill.cu), and of no other
+// kernel: a CTA attends a set of query rows of ONE sequence and ONE KV head
+// over that sequence's blocks of the paged pool, streaming one KV block at
+// a time through shared memory with an fp32 online softmax. (Decode has its
+// own split-context kernel, paged_decode.cu; bf16 prefill runs on the
+// tensor cores.)
 //
 // Pool layout [NB, BS, Hkv, D] (the JAX package's, models/paged.py): the BS
 // keys of head h in block b are rows of D contiguous elements, Hkv*D apart.
 //
 // Each warp owns RPW rows for the whole CTA and keeps their accumulators,
-// running max and running sum in registers (lane l holds dims l, l+32, ...);
+// running max and running sum in registers (lane l holds dims l, l+32, ...,
+// DPL of them: head dims up to 32 DPL);
 // a key or value element loaded from shared memory feeds all RPW rows, which
 // is what keeps the CUDA-core dots from being bound by shared-memory loads.
 // Shared memory (dynamic): per row its output offset, position and scaled
@@ -20,9 +22,6 @@
 #include "common.cuh"
 
 namespace dstpu {
-
-constexpr int kMaxDim = 128;          // head dims up to 128 ...
-constexpr int kDimPerLane = kMaxDim / 32;  // ... held as 4 registers a lane
 
 struct Smem {
   long long* row_off;  // [rows] element offset of the row in q / out
@@ -57,9 +56,9 @@ __device__ inline Smem carve(char* base, int rows, int bs, int d) {
 // that is not written) over blocks
 // table_row[0 .. n_blocks-1] of KV head h. Warp w owns rows w*RPW ..
 // w*RPW+RPW-1. A key at kpos is visible to a row at qpos iff kpos <= qpos;
-// a pad row reads nothing and its output is zeros. Requires d <= kMaxDim and
+// a pad row reads nothing and its output is zeros. Requires d <= 32 DPL and
 // d % 4 == 0.
-template <typename T, int RPW>
+template <typename T, int RPW, int DPL>
 __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
                             const T* __restrict__ k_pool, const T* __restrict__ v_pool,
                             const int* __restrict__ table_row, int n_blocks, int bs, int hkv,
@@ -79,14 +78,14 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 
   const int r0 = warp * RPW;
   int qpos[RPW];
-  float m[RPW], l[RPW], acc[RPW][kDimPerLane];
+  float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     qpos[i] = s.row_pos[r0 + i];
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int t = 0; t < kDimPerLane; ++t) acc[i][t] = 0.f;
+    for (int t = 0; t < DPL; ++t) acc[i][t] = 0.f;
   }
   int warp_last = -1;  // the warp's largest query position
 #pragma unroll
@@ -165,7 +164,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 
     // acc = acc * corr + p @ V: lane owns dims lane + 32 t
 #pragma unroll
-    for (int t = 0; t < kDimPerLane; ++t)
+    for (int t = 0; t < DPL; ++t)
 #pragma unroll
       for (int i = 0; i < RPW; ++i) acc[i][t] *= corr[i];
     for (int kk = 0; kk < bs; ++kk) {
@@ -173,7 +172,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
 #pragma unroll
       for (int i = 0; i < RPW; ++i) pk[i] = pw[i * bs + kk];
 #pragma unroll
-      for (int t = 0; t < kDimPerLane; ++t) {
+      for (int t = 0; t < DPL; ++t) {
         const int c = lane + 32 * t;
         if (c < d) {
           const float vv = s.v[kk * d + c];
@@ -190,7 +189,7 @@ __device__ void attend_rows(const T* __restrict__ q, T* __restrict__ out,
     const float denom = fmaxf(l[i], 1e-30f);
     const long long off = s.row_off[r0 + i];
 #pragma unroll
-    for (int t = 0; t < kDimPerLane; ++t) {
+    for (int t = 0; t < DPL; ++t) {
       const int c = lane + 32 * t;
       if (off >= 0 && c < d) out[off + c] = from_float<T>(acc[i][t] / denom);
     }

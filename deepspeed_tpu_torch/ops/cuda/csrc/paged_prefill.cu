@@ -37,8 +37,9 @@
 //   zero-padded in shared memory. The CTAs are ordered by their number of
 //   key steps, most first (each CTA ranks the work items itself).
 // - fp32: the CUDA-core kernel of paged_common.cuh (`attend_rows`), one CTA
-//   per (tile, KV head, 64-row chunk): fp32 checks hold it to 1e-4, which
-//   rules out TF32 tensor cores.
+//   per (tile, KV head, 64-row chunk), 4 head dims a lane up to d = 128 and
+//   8 up to 256: fp32 checks hold it to 1e-4, which rules out TF32 tensor
+//   cores.
 
 #include "flash_mma.cuh"
 #include "hopper.cuh"
@@ -50,7 +51,8 @@ constexpr int kThreads = 256;
 constexpr int kRowsPerWarp = 8;
 constexpr int kRows = kThreads / 32 * kRowsPerWarp;  // 64 query rows per CTA
 
-template <typename T>
+// DPL: head dims a lane holds (d <= 32 DPL)
+template <typename T, int DPL>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                      const T* __restrict__ v_pool, const int* __restrict__ tile_slot,
@@ -76,21 +78,21 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int last_qi = min((row0 + rows - 1) / rep, valid - 1);
   const int n_blocks = last_qi >= row0 / rep ? (pos0 + last_qi) / bs + 1 : 0;
   const int* table_row = block_tables + (long long)tile_slot[tile] * bt_stride;
-  dstpu::attend_rows<T, kRowsPerWarp>(q, out, k_pool, v_pool, table_row, n_blocks, bs, hkv,
-                                      d, h, scale, s);
+  dstpu::attend_rows<T, kRowsPerWarp, DPL>(q, out, k_pool, v_pool, table_row, n_blocks, bs,
+                                           hkv, d, h, scale, s);
 }
 
+template <int DPL>
 cudaError_t launch_fp32(const void* q, const void* k_pool, const void* v_pool,
                         const void* tile_slot, const void* tile_pos0, const void* tile_valid,
                         const void* block_tables, int bt_stride, void* out, int n_tiles, int hq,
                         int hkv, int d, int bs, int ct, float scale, cudaStream_t stream) {
-  if (d > dstpu::kMaxDim || d % 4) return cudaErrorInvalidValue;
   const size_t smem = dstpu::smem_bytes(kRows, bs, d);
-  cudaError_t err = dstpu::allow_smem(paged_prefill_kernel<float>, smem);
+  cudaError_t err = dstpu::allow_smem(paged_prefill_kernel<float, DPL>, smem);
   if (err != cudaSuccess) return err;
   const int chunks = (ct * (hq / hkv) + kRows - 1) / kRows;
   const dim3 grid(n_tiles, hkv, chunks);
-  paged_prefill_kernel<float><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<float, DPL><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pool),
       static_cast<const float*>(v_pool), static_cast<const int*>(tile_slot),
       static_cast<const int*>(tile_pos0), static_cast<const int*>(tile_valid),
@@ -140,9 +142,10 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi, uint32_t&
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// DP: the head dim d padded to 16, 32, 64 or 128 (zeros in shared memory)
+// DP: the head dim d padded to 16, 32, 64, 128 or 256 (zeros in shared
+// memory); at 256 the accumulators take a CTA's share of two a SM
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DP <= 128 ? 2 : 1)
 paged_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_pool,
                         const bf16* __restrict__ v_pool, const int* __restrict__ tile_slot,
                         const int* __restrict__ tile_pos0, const int* __restrict__ tile_valid,
@@ -371,7 +374,9 @@ paged_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_p
   }
 }
 
-int padded_dim(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+int padded_dim(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* tile_slot,
@@ -395,7 +400,7 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
                      const void* tile_slot, const void* tile_pos0, const void* tile_valid,
                      const void* block_tables, int bt_stride, void* out, int n_tiles, int hq,
                      int hkv, int d, int bs, int ct, float scale, cudaStream_t stream) {
-  if (d > 128 || d % 8) return cudaErrorInvalidValue;
+  if (d > 256 || d % 8) return cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 16:
       return launch<16>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
@@ -406,8 +411,11 @@ cudaError_t dispatch(const void* q, const void* k_pool, const void* v_pool,
     case 64:
       return launch<64>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
                         bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, stream);
-    default:
+    case 128:
       return launch<128>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
+                         bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, stream);
+    default:
+      return launch<256>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
                          bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, stream);
   }
 }
@@ -427,9 +435,14 @@ extern "C" int dstpu_paged_prefill(const void* q, const void* k_pool, const void
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    err = launch_fp32(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
-                      bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, st);
+  if (dtype == 0 && (d > 256 || d % 4))
+    err = cudaErrorInvalidValue;
+  else if (dtype == 0 && d <= 128)
+    err = launch_fp32<4>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
+                         bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, st);
+  else if (dtype == 0)
+    err = launch_fp32<8>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
+                         bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, st);
   else if (dtype == 1)
     err = tc::dispatch(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid, block_tables,
                        bt_stride, out, n_tiles, hq, hkv, d, bs, ct, scale, st);

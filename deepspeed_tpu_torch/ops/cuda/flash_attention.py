@@ -10,11 +10,14 @@ Kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``):
 - ``flash_attention_dq`` -> ``dq``, replacing ``_dq_kernel``.
 
 All three do far more flops than bytes at training shapes, so the tensor
-cores' rate bounds them. In bf16 each runs warp-specialised ``wgmma`` on
-Hopper: a producer warp streams tiles by TMA through a ring in shared
-memory, two consumer warpgroups multiply; operands are read through 4-D
-tensor maps (``tma_layout``) and nothing is staged transposed. In fp32 they
-run CUDA-core FMAs (fp32 checks at 1e-4 rule out TF32).
+cores' rate bounds them. In bf16 at head dims 64 and 128 each runs
+warp-specialised ``wgmma`` on Hopper: a producer warp streams tiles by TMA
+through a ring in shared memory, two consumer warpgroups multiply; operands
+are read through 4-D tensor maps (``tma_layout``) and nothing is staged
+transposed. In fp32, and in bf16 at every other head dim, they run
+CUDA-core FMAs (fp32 checks at 1e-4 rule out TF32) compiled for the padded
+head dims 64, 128 and 256: loads zero-fill past the head dim and stores are
+masked to it. ``supports`` says which head dims the kernels take.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it computes the plain version. The plain versions compute the same
@@ -30,7 +33,8 @@ keys instead; the two agree when Sq == Skv, which training always has).
 Layouts: q, o, dO [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] (Hq % Hkv == 0);
 lse [B, Hq, Sq] fp32. The kernels read q, k, v and dO through their strides
 (any batch, sequence and head strides, head dim contiguous), take fp32 or
-bf16 and head dims 64 or 128, and handle any sequence length.
+bf16 and every head dim the reference's Pallas kernels take up to 256
+(``supports``), and handle any sequence length.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, each
 plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
@@ -47,7 +51,16 @@ from deepspeed_tpu_torch.ops.cuda import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the wgmma kernels serve
+
+
+def supports(d: int, dtype) -> bool:
+    """Whether the kernels take head dim ``d`` in ``dtype``: fp32 or bf16,
+    ``d % 8 == 0`` (the reference's ``_supported``; every row a multiple of
+    16 bytes) and ``8 <= d <= 256``. Above 256 the reference's XLA route
+    runs what no kernel here takes."""
+    return dtype in _DTYPES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
 def reset_counts() -> None:
@@ -135,11 +148,12 @@ def _check(q, k, v, *others):
     b, _, hq, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head dims {HEAD_DIMS}; got {d}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"want float32 or bfloat16 q, k, v of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not supports(d, q.dtype):
+        raise ValueError(f"flash attention kernels take head dims d % 8 == 0, 8 <= d <= "
+                         f"{MAX_HEAD_DIM}; got {d}")
     vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v), *others):
         if x.device != q.device:
@@ -169,9 +183,10 @@ def tma_layout(x) -> list[int]:
 
 def kernel_layouts(*tensors) -> ctypes.Array | None:
     """The tensor maps of ``tensors`` in turn (7 values each) for the bf16
-    kernels, which read their inputs by TMA; None for fp32, whose kernels
-    read through the element strides."""
-    if tensors[0].dtype != torch.bfloat16:
+    wgmma kernels (head dims 64 and 128), which read their inputs by TMA;
+    None for the CUDA-core kernels, which read through the element strides."""
+    x = tensors[0]
+    if x.dtype != torch.bfloat16 or x.shape[-1] not in WGMMA_HEAD_DIMS:
         return None
     vals = [v for x in tensors for v in tma_layout(x)]
     return (ctypes.c_ulonglong * len(vals))(*vals)

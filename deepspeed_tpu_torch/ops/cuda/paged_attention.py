@@ -2,7 +2,8 @@
 versions (counterpart of ``deepspeed_tpu/ops/pallas/paged_attention.py``).
 
 ``paged_decode_attention``: per-token attention over each token's sequence
-blocks (``csrc/paged_decode.cu``, replacing the Pallas ``_kernel``).
+blocks, each context split across CTAs whose partial results are merged in
+a fixed order (``csrc/paged_decode.cu``, replacing the Pallas ``_kernel``).
 ``ragged_prefill_attention``: tiled SplitFuse prefill, one KV-block fetch per
 tile (``csrc/paged_prefill.cu``, replacing the Pallas ``_prefill_kernel``).
 
@@ -12,6 +13,8 @@ tensors it computes the plain version. The plain versions
 through the block table, a position mask and a softmax. They are the CPU
 path and the oracle the kernels are held against on the card.
 
+The kernels take fp32 or bf16 pools and every head dim ``supports`` allows.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and each
 plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
 """
@@ -19,14 +22,37 @@ plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from deepspeed_tpu_torch.ops.cuda import _build
+# the paged kernels take the flash kernels' head dims: d % 8 == 0 (rows of
+# 16 bytes), 8 <= d <= 256, fp32 or bf16
+from deepspeed_tpu_torch.ops.cuda.flash_attention import MAX_HEAD_DIM, supports  # noqa: F401
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GQA_REP = 32  # query heads per KV head the decode kernel takes
+# the decode kernel aims at about this many (token, KV head, split) CTAs an SM
+_DECODE_CTAS_PER_SM = 4
+
+
+def decode_splits(tokens: int, hkv: int, table_width: int, sms: int) -> int:
+    """How many splits the decode kernel cuts each token's context into,
+    from sizes the host knows without reading the card (never the
+    positions): enough (token, KV head, split) CTAs for about
+    ``_DECODE_CTAS_PER_SM`` an SM, each split owning the same whole number
+    of the table's blocks and none owning only columns past the table.
+
+    It never gives more than ``ceil(C sms / (tokens hkv))`` splits (C =
+    ``_DECODE_CTAS_PER_SM``), and more than one only when ``tokens hkv <
+    C sms``: so ``tokens hkv splits < 2 C sms`` whenever the partials are
+    used, whatever the token count, which bounds ``DecodeWorkspace``."""
+    want = -(-_DECODE_CTAS_PER_SM * sms // max(1, tokens * hkv))
+    per_split = -(-table_width // max(1, min(want, table_width)))
+    return -(-table_width // per_split)
 
 
 def reset_counts() -> None:
@@ -112,9 +138,9 @@ def _check_pools(q, k_pool, v_pool):
     hkv = k_pool.shape[2]
     if k_pool.shape[3] != d or hq % hkv:
         raise ValueError(f"head dims disagree: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}")
-    if (d * q.element_size()) % 16 or d > 128:
-        raise ValueError(f"head dim {d} x {q.element_size()} B: the kernels take head "
-                         "dims up to 128 whose rows are a multiple of 16 B")
+    if not supports(d, q.dtype):
+        raise ValueError(f"head dim {d}: the kernels take head dims d % 8 == 0, "
+                         f"8 <= d <= {MAX_HEAD_DIM}")
 
 
 def _meta(x, n: int, device, name: str):
@@ -138,9 +164,67 @@ def _decode_lib():
     fn = lib.dstpu_paged_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                       i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_sizes(t: int, hq: int, hkv: int, d: int, splits: int) -> tuple[int, int]:
+    """(fp32 partials, int32 counters) a call of ``splits`` > 1 splits uses:
+    m and l per (query row, split), then from the next multiple of 4 floats
+    acc[d] per (query row, split); a counter per (token, KV head)."""
+    rows = t * hq * splits
+    return -(-2 * rows // 4) * 4 + rows * d, t * hkv
+
+
+def _workspace_sizes(hq: int, hkv: int, d: int, sms: int) -> tuple[int, int]:
+    """(fp32 partials, int32 counters) that hold every split call
+    ``decode_splits`` allows at these sizes and any token count: such a call
+    has tokens hkv splits < 2 C sms (C = ``_DECODE_CTAS_PER_SM``), so fewer
+    than 2 C sms hq / hkv query rows, and tokens hkv < C sms counters."""
+    ctas = _DECODE_CTAS_PER_SM * sms
+    return _decode_sizes(1, 2 * ctas * (hq // hkv), 1, d, 1)[0], ctas
+
+
+class DecodeWorkspace:
+    """The split decode's scratch on one device: fp32 partials (m, l,
+    acc[d] per query row and split) and int32 counters (one per token and
+    KV head, 0 between calls: the kernel resets them).
+
+    Sized once, for every call that ``decode_splits`` allows with ``hq``
+    query heads, ``hkv`` KV heads and head dim up to ``d`` at any token
+    count, and never resized: a CUDA graph that captured a call replays on
+    these buffers for as long as the workspace lives. Calls that share a
+    workspace must run in order (one stream); its owner, the paged cache
+    of an engine, runs one step at a time."""
+
+    def __init__(self, device, hq: int, hkv: int, d: int):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"the decode workspace lives on a CUDA device, not {device}")
+        if hq % hkv:
+            raise ValueError(f"{hq} query heads are not a multiple of {hkv} KV heads")
+        self.hq, self.hkv, self.d = hq, hkv, d
+        n_part, n_counters = _workspace_sizes(hq, hkv, d, _sm_count(device.index or 0))
+        self.part = torch.empty(n_part, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+
+    def buffers(self, device, t: int, hq: int, hkv: int, d: int, splits: int):
+        """(partials, counters) for a call, or ValueError if it does not fit."""
+        n_part, n_counters = _decode_sizes(t, hq, hkv, d, splits)
+        if (device != self.part.device or n_part > self.part.numel()
+                or n_counters > self.counters.numel()):
+            raise ValueError(
+                f"decode workspace for Hq {self.hq}, Hkv {self.hkv}, d <= {self.d} on "
+                f"{self.part.device} does not fit a call of {t} tokens, Hq {hq}, Hkv {hkv}, "
+                f"d {d}, {splits} splits on {device}")
+        return self.part, self.counters
 
 
 def _prefill_lib():
@@ -154,13 +238,21 @@ def _prefill_lib():
 
 
 def paged_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
-                           scale: float | None = None):
+                           scale: float | None = None,
+                           workspace: DecodeWorkspace | None = None):
     """[T, Hq, D] ragged tokens -> [T, Hq, D] attention outputs.
 
     ``k_pool``/``v_pool``: [NB, BS, Hkv, D]; ``block_tables``: [max_seqs+1,
     MB] mapping (slot, block ordinal) -> pool block id (the row stride is
     passed, so a column slice of the table needs no copy). Block ids and
-    slots are trusted: the engine's scheduler produces them."""
+    slots are trusted: the engine's scheduler produces them.
+
+    Each token's context is cut into ``decode_splits`` runs of whole blocks
+    of the table; the call reads nothing back from the card. With a
+    ``workspace`` (``DecodeWorkspace``, owned by the caller) it allocates
+    nothing but its output, so a CUDA graph that captures it replays on
+    buffers that outlive it; without one, a call whose contexts are split
+    takes its partials and counters from the caching allocator."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, slots, positions,
                                           block_tables, scale)
@@ -169,17 +261,32 @@ def paged_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
     _check_pools(q, k_pool, v_pool)
     t, hq, d = q.shape
     _, bs, hkv, _ = k_pool.shape
+    if hq // hkv > MAX_GQA_REP:
+        raise ValueError(f"{hq // hkv} query heads per KV head; the decode kernel takes up "
+                         f"to {MAX_GQA_REP}")
     slots = _meta(slots, t, q.device, "slots")
     positions = _meta(positions, t, q.device, "positions")
     bt = _table(block_tables, q.device)
     out = torch.empty_like(q)
     if t == 0:
         return out
+    mb = bt.shape[1]
+    splits = decode_splits(t, hkv, mb, _sm_count(q.device.index or 0))
+    per_split = -(-mb // splits)
+    part = counters = None
+    if splits > 1 and workspace is not None:
+        part, counters = workspace.buffers(q.device, t, hq, hkv, d, splits)
+    elif splits > 1:
+        n_part, n_counters = _decode_sizes(t, hq, hkv, d, splits)
+        part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rc = _decode_lib()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), slots.data_ptr(),
         positions.data_ptr(), bt.data_ptr(), bt.stride(0), out.data_ptr(),
-        t, hq, hkv, d, bs, scale, _DTYPES[q.dtype], q.device.index or 0,
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), t, hq, hkv, d, bs, per_split,
+        splits, scale, _DTYPES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError_t {rc}")

@@ -23,12 +23,19 @@ pytestmark = pytest.mark.cuda
 STALE = 1 << 30  # a block id no pool has: reading it faults
 
 # (Hq, Hkv, D, NB, BS, MB): the layout of tests/unit/test_paged_attention.py,
-# a GQA rep=4 case, the tiny engine of tests/test_torch_ragged.py, Llama-3-8B
+# a GQA rep=4 case, the tiny engine of tests/test_torch_ragged.py, Llama-3-8B;
+# then GQA rep 1 and 8 and the head dims besides 64 and 128 that the
+# reference's kernels take (16, 80, 96 and the largest, 256)
 SHAPES = {
     "unit_layout": (4, 2, 16, 16, 8, 4),
     "gqa4_d128": (8, 2, 128, 64, 32, 8),
     "tiny_engine": (4, 2, 8, 49, 4, 16),
     "llama3_8b": (32, 8, 128, 577, 32, 18),
+    "rep1_d64": (4, 4, 64, 64, 16, 8),
+    "rep8_d80": (16, 2, 80, 64, 16, 8),
+    "gqa4_d16": (8, 2, 16, 64, 16, 8),
+    "gqa4_d96": (8, 2, 96, 64, 16, 8),
+    "gqa4_d256": (8, 2, 256, 64, 16, 8),
 }
 # fp32 kernel vs fp32 plain: summation order only; bf16: both round the
 # output to bf16 (one ulp at |x| ~ 1 is 2**-7) from the same bf16 inputs
@@ -71,17 +78,21 @@ def _tables(bt, last_block, device):
     return torch.tensor(poisoned, device=device), torch.tensor(clean, device=device)
 
 
-def _decode_case(shape, dtype, device, seed=0):
+def _decode_case(shape, dtype, device, seed=0, tokens=15):
     hq, hkv, d, nb, bs, mb = shape
     rng = np.random.default_rng(seed)
     n_seqs = 6
     kp, vp, bt = _pools(rng, shape, n_seqs, dtype, device)
     ctx = mb * bs
-    # block edges, first and last positions, random ones, then padding tokens
-    pos = [0, bs - 1, bs, 2 * bs - 1, ctx - 1] + list(rng.integers(0, ctx, 7))
+    # the whole table, the first position, block edges, random positions,
+    # then padding tokens (3 of 15; none in a case of a few tokens)
+    n_pad = min(3, tokens // 5)
+    pos = [ctx - 1, 0, bs - 1, bs, 2 * bs - 1]
+    pos = (pos + list(rng.integers(0, ctx, max(0, tokens - n_pad - len(pos)))))
+    pos = pos[:tokens - n_pad]
     slots = [i % n_seqs for i in range(len(pos))]
-    slots += [n_seqs] * 3
-    pos += [0] * 3
+    slots += [n_seqs] * n_pad
+    pos += [0] * n_pad
     last = {}
     for s, p in zip(slots, pos):
         if s < n_seqs:
@@ -114,11 +125,37 @@ def _prefill_case(shape, dtype, device, seed=1, ct=None):
     return (q, kp, vp, *meta), bt_k, bt_p, ct, valid_rows
 
 
+def _split_regime(shape, regime):
+    """(tokens, the split count ``decode_splits`` gives them) for a regime of
+    the decode kernel, reached through the sizes the split count comes from:
+    15 tokens ("auto", whatever it picks); tokens x Hkv >= C SMs ("one": every
+    output written directly); C SMs / 2 <= tokens x Hkv < C SMs ("two"); the
+    most tokens, up to 15, at which each split holds one block of the table
+    ("block": every split of a long context merged)."""
+    hkv, mb = shape[1], shape[5]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = pa._DECODE_CTAS_PER_SM * sms
+    tokens = {"auto": 15, "one": -(-ctas // hkv), "two": -(-ctas // (2 * hkv)),
+              "block": max(t for t in range(1, 16)
+                           if pa.decode_splits(t, hkv, mb, sms) == mb)}[regime]
+    return tokens, pa.decode_splits(tokens, hkv, mb, sms)
+
+
+# the decode kernel's split count: its own choice at 15 tokens, one split,
+# two, and one block a split; contexts run from one key to the table's
+# width. The forced regimes run on a workspace the caller owns, "auto" on
+# buffers from the caching allocator.
+@pytest.mark.parametrize("splits", ["auto", "one", "two", "block"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", list(SHAPES))
-def test_paged_decode_kernel_matches_plain(cuda, shape, dtype):
-    args, bt_k, bt_p = _decode_case(SHAPES[shape], dtype, cuda)
-    got = pa.paged_decode_attention(*args, bt_k)
+def test_paged_decode_kernel_matches_plain(cuda, shape, dtype, splits):
+    hq, hkv, d, _, _, mb = SHAPES[shape]
+    tokens, n = _split_regime(SHAPES[shape], splits)
+    if splits != "auto":
+        assert n == {"one": 1, "two": min(2, mb), "block": mb}[splits]
+    workspace = None if splits == "auto" else pa.DecodeWorkspace(cuda, hq, hkv, d)
+    args, bt_k, bt_p = _decode_case(SHAPES[shape], dtype, cuda, tokens=tokens)
+    got = pa.paged_decode_attention(*args, bt_k, workspace=workspace)
     want = pa.paged_decode_attention_ref(*args, bt_p)
     torch.cuda.synchronize()
     assert pa.paged_decode_attention.launches == 1
@@ -168,7 +205,46 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                   *args[1:], bt_k)
     with pytest.raises(ValueError):
         pa.paged_decode_attention(q, *args[1:3], args[3][:-1], args[4], bt_k)
+    with pytest.raises(ValueError, match="multiple"):
+        pa.DecodeWorkspace(cuda, 6, 4, 16)
+    # a workspace sized for the unit layout is too small for the 8B's call
+    small = pa.DecodeWorkspace(cuda, *SHAPES["unit_layout"][:3])
+    big, big_bt, _ = _decode_case(SHAPES["llama3_8b"], torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        pa.paged_decode_attention(*big, big_bt, workspace=small)
     assert pa.paged_decode_attention.launches == 0
+
+
+@pytest.mark.parametrize("workspace", ["owned", "per_call"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_paged_decode_is_captured_by_a_cuda_graph(cuda, dtype, workspace):
+    """The decode call reads nothing back from the card: a CUDA graph
+    captures one call whose contexts are split and merged, on a workspace
+    the caller owns or on buffers the call takes from the caching allocator.
+    A larger call (more partials) then runs on the same workspace, and
+    replaying the graph on new inputs still equals a direct call."""
+    shape = SHAPES["llama3_8b"]
+    ws = pa.DecodeWorkspace(cuda, *shape[:3]) if workspace == "owned" else None
+    tokens, splits = _split_regime(shape, "block")  # one block a split
+    args, bt_k, _ = _decode_case(shape, dtype, cuda, tokens=tokens)
+    q = args[0]
+    pa.paged_decode_attention(*args, bt_k, workspace=ws)  # loads the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pa.paged_decode_attention(*args, bt_k, workspace=ws)
+    big_tokens, big_splits = _split_regime(shape, "auto")
+    assert big_tokens * big_splits > tokens * splits
+    big, big_bt, big_bt_p = _decode_case(shape, dtype, cuda, seed=1, tokens=big_tokens)
+    got_big = pa.paged_decode_attention(*big, big_bt, workspace=ws)
+    q.copy_(torch.randn_like(q))
+    graph.replay()
+    direct = pa.paged_decode_attention(*args, bt_k, workspace=ws)
+    want_big = pa.paged_decode_attention_ref(*big, big_bt_p)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, direct)
+    torch.testing.assert_close(got_big.float(), want_big.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
 
 
 # ------------------------------------------------------- flash attention
@@ -184,6 +260,12 @@ FLASH_SHAPES = {
     "gqa8_d128": (1, 300, 300, 16, 2, 128),
     "long_q_d128": (2, 250, 90, 8, 2, 128),
     "rep8_s1000_d128": (1, 1000, 1000, 16, 2, 128),
+    # head dims the CUDA-core kernels serve in both dtypes, padded to 64, 128
+    # and 256 (at 256 the backward loops over 32-row tiles)
+    "gqa4_d16": (2, 100, 100, 8, 2, 16),
+    "mha_d80": (1, 130, 130, 4, 4, 80),
+    "short_q_d96": (1, 64, 192, 4, 2, 96),
+    "gqa8_d256": (1, 300, 300, 16, 2, 256),
 }
 
 
@@ -229,19 +311,33 @@ def test_flash_kernels_match_plain(cuda, shape, dtype, causal, strided):
 
 @pytest.mark.parametrize("strided", [False, True], ids=["contig", "strided"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("kernel", ["fwd", "dkdv", "dq"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkdv", "dq", "decode"])
 def test_flash_kernels_are_bit_identical_across_launches(cuda, kernel, dtype, strided):
-    """No atomics: two launches on the same inputs give the same bits (S =
-    300 lies off the kernels' 128-row tiles)."""
-    q, k, v, do = _flash_case((2, 300, 300, 8, 2, 128), dtype, cuda, strided=strided)
-    o, lse = fa.flash_attention_fwd_ref(q, k, v, True)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    fn = {"fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
-          "dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, True),
-          "dq": lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta, True),)}[kernel]
+    """Two launches on the same inputs give the same bits: the flash kernels
+    use no atomics (S = 300 lies off their 128-row tiles), and the decode
+    kernel merges its splits (here one block each) in a fixed order; its
+    strided case reads a column slice of a wider table."""
+    if kernel == "decode":
+        tokens, _ = _split_regime(SHAPES["llama3_8b"], "block")
+        args, bt_k, _ = _decode_case(SHAPES["llama3_8b"], dtype, cuda, tokens=tokens)
+        if strided:
+            wide = torch.zeros(bt_k.shape[0], bt_k.shape[1] + 5, dtype=bt_k.dtype,
+                               device=cuda)
+            wide[:, :bt_k.shape[1]] = bt_k
+            bt_k = wide[:, :bt_k.shape[1]]
+        fn = lambda: (pa.paged_decode_attention(*args, bt_k),)  # noqa: E731
+        counter = pa.paged_decode_attention
+    else:
+        q, k, v, do = _flash_case((2, 300, 300, 8, 2, 128), dtype, cuda, strided=strided)
+        o, lse = fa.flash_attention_fwd_ref(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        fn = {"fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
+              "dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, True),
+              "dq": lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta, True),)}[kernel]
+        counter = getattr(fa, f"flash_attention_{kernel}")
     first, second = fn(), fn()
     torch.cuda.synchronize()
-    assert getattr(fa, f"flash_attention_{kernel}").launches == 2
+    assert counter.launches == 2
     for a, b in zip(first, second, strict=True):
         assert torch.equal(a, b)
 
@@ -265,12 +361,42 @@ def test_flash_autograd_matches_eager_attention(cuda):
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    """Head dims off the 8-grid or above 256 raise before any launch; 96,
+    which the reference takes, is computed."""
+    for d in (12, 264):
+        q, k, v, do = _flash_case((1, 64, 64, 4, 2, d), torch.float32, cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_attention_fwd(q, k, v)
+    assert fa.flash_attention_fwd.launches == 0
     q, k, v, do = _flash_case((1, 64, 64, 4, 2, 96), torch.float32, cuda)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention_fwd(q, k, v)
+    o, _ = fa.flash_attention_fwd(q, k, v)
+    torch.testing.assert_close(o, fa.flash_attention_fwd_ref(q, k, v)[0], atol=1e-4, rtol=1e-4)
+    fa.reset_counts()
     q, k, v, do = _flash_case((1, 64, 64, 4, 2, 64), torch.float32, cuda)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
     assert fa.flash_attention_fwd.launches == 0
+
+
+def test_tiny_llama_trains_on_the_kernels(cuda):
+    """LlamaConfig.tiny() (head dim 16) trains on the card through the flash
+    kernels, never the plain versions, and its loss falls on a repeated
+    batch."""
+    from functools import partial
+
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+
+    cfg = llama.LlamaConfig.tiny()
+    eng, _, _, _ = engine_mod.initialize(
+        model=partial(llama.build, cfg), seed=0,
+        config={"train_micro_batch_size_per_device": 2, "steps_per_print": 0,
+                "optimizer": {"type": "adamw", "params": {"lr": 1e-2}}})
+    batch = {"input_ids": np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64),
+                                                            dtype=np.int32)}
+    losses = [float(eng.train_batch(batch)) for _ in range(6)]
+    assert fa.flash_attention_fwd.launches > 0 and fa.flash_attention_dq.launches > 0
+    assert fa.flash_attention_fwd_ref.calls == fa.flash_attention_bwd_ref.calls == 0
+    assert losses[-1] < losses[0], losses

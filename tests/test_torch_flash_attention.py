@@ -23,6 +23,7 @@ from deepspeed_tpu.ops.pallas.flash_attention import (
 )
 from deepspeed_tpu_torch.ops import attention as tattn
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
 FWD_TOL = 2e-5
 BWD_TOL = 5e-5
@@ -48,8 +49,9 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("shape", [dict(hq=4, hkv=4), dict(hq=4, hkv=2),
-                                   dict(hq=8, hkv=2, sq=128, skv=128, b=1)],
-                         ids=["mha", "gqa2", "gqa4_s128"])
+                                   dict(hq=8, hkv=2, sq=128, skv=128, b=1),
+                                   dict(hq=4, hkv=2, d=16), dict(hq=4, hkv=2, d=80)],
+                         ids=["mha", "gqa2", "gqa4_s128", "gqa2_d16", "gqa2_d80"])
 def test_plain_versions_match_pallas(causal, shape):
     q, k, v, do = _inputs(**shape)
     scale = 1.0 / np.sqrt(q.shape[-1])
@@ -165,10 +167,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     """Shape, dtype and layout checks run before any launch; on the CPU they
     are reached through a tensor on the 'meta' device, which no wrapper
     computes on."""
-    q, k, v, _ = _inputs(d=32)
+    q, k, v, _ = _inputs(d=12)
     tq, tk, tv = (x.to("meta") for x in _t(q, k, v))
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention_fwd(tq, tk, tv)
+    with pytest.raises(ValueError, match="head dims"):
+        fa._check(tq, tk, tv)
+    tq, tk, tv = (torch.empty(1, 8, 2, 264, device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="head dims"):
         fa._check(tq, tk, tv)
     q, k, v, _ = _inputs(d=64)
@@ -202,13 +207,30 @@ def test_tma_layout_rejects_what_tma_cannot_read():
 
 
 def test_kernel_layouts_give_the_bf16_kernels_one_map_per_tensor():
-    """The bf16 kernels get the tensor maps of their inputs in turn (q, k, v
-    for the forward; q, k, v, dO for dK/dV and dQ), 7 values each; the fp32
-    kernels, which read through strides, get none."""
+    """The bf16 wgmma kernels get the tensor maps of their inputs in turn (q,
+    k, v for the forward; q, k, v, dO for dK/dV and dQ), 7 values each; the
+    CUDA-core kernels (fp32, and bf16 at head dims other than 64 and 128),
+    which read through strides, get none."""
     q = torch.zeros(2, 130, 8, 128, dtype=torch.bfloat16)
     k = torch.zeros(2, 8, 100, 128, dtype=torch.bfloat16).transpose(1, 2)  # strided
     layouts = fa.kernel_layouts(q, k, k, q)
     assert list(layouts) == fa.tma_layout(q) + 2 * fa.tma_layout(k) + fa.tma_layout(q)
     assert fa.kernel_layouts(q.float(), k.float(), k.float()) is None
+    q80 = torch.zeros(2, 130, 8, 80, dtype=torch.bfloat16)
+    assert fa.kernel_layouts(q80, q80, q80) is None
     with pytest.raises(ValueError, match="multiples of 16"):
         fa.kernel_layouts(q, torch.zeros(1, 4, 1, 4, dtype=torch.bfloat16))
+
+
+# ------------------------------------------------------------ head dims
+@pytest.mark.parametrize("module", [fa, pa], ids=["flash", "paged"])
+def test_supports_takes_the_reference_head_dims(module):
+    """The kernels take what the reference's Pallas kernels take (``d % 8 ==
+    0``) from 8 up to 256, in fp32 and bf16; above 256, or off the 8-grid,
+    they refuse."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 16, 80, 96, 256):
+            assert module.supports(d, dtype), (d, dtype)
+        for d in (12, 264):
+            assert not module.supports(d, dtype), (d, dtype)
+    assert not module.supports(64, torch.float16)

@@ -13,6 +13,7 @@ import torch
 
 from deepspeed_tpu.ops import attention as jax_attention
 from deepspeed_tpu.ops.pallas import paged_attention as jax_pallas
+from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops import attention as port_attention
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -44,6 +45,11 @@ DECODE_CASES = {
     "unit_layout": (4, 2, 16, 16, 8, "unit", [0, 0, 1, 1, 0, 1, 2], [0, 13, 5, 8, 31, 17, 0]),
     "block_edges": (4, 2, 16, 16, 8, "unit", [0, 0, 0, 0], [7, 8, 15, 16]),
     "gqa4_d128_bs32": (8, 2, 128, 12, 32, "gqa", [0, 1, 0, 1, 2], [0, 31, 32, 127, 0]),
+    # head dims the kernels take besides 128: the smallest bucket, one off
+    # a power of two, and the largest
+    "gqa4_d16": (8, 2, 16, 12, 8, "gqa", [0, 1, 0, 1, 2], [0, 7, 8, 31, 0]),
+    "gqa4_d80": (8, 2, 80, 12, 8, "gqa", [0, 1, 0, 1, 2], [0, 7, 8, 31, 0]),
+    "gqa4_d256": (8, 2, 256, 12, 8, "gqa", [0, 1, 0, 1, 2], [0, 7, 8, 31, 0]),
 }
 
 # (Hq, Hkv, D, NB, BS, CT, table, tile_slot, tile_pos0, tile_valid)
@@ -54,6 +60,8 @@ PREFILL_CASES = {
     # tiles crossing block edges, pad rows, an all-pad tile
     "gqa4_d128_bs32": (8, 2, 128, 12, 32, 16, "gqa", [0, 0, 1, 2],
                        [24, 40, 31, 0], [16, 9, 16, 0]),
+    "gqa4_d16": (8, 2, 16, 12, 8, 8, "gqa", [0, 0, 1, 2], [3, 11, 7, 0], [8, 5, 8, 0]),
+    "gqa4_d80": (8, 2, 80, 12, 8, 8, "gqa", [0, 0, 1, 2], [3, 11, 7, 0], [8, 5, 8, 0]),
 }
 
 
@@ -141,3 +149,32 @@ def test_dispatchers_reject_other_impls(impl):
     meta = [torch.tensor(x, dtype=torch.int32) for x in ([0], [0], [4])]
     with pytest.raises(ValueError, match="want 'auto' or 'plain'"):
         port_attention.ragged_prefill_attention(q[:4], kp, vp, *meta, bt, 4, impl=impl)
+
+
+@pytest.mark.parametrize("tokens", [1, 4, 32, 128, 1024])
+@pytest.mark.parametrize("table_width", [1, 4, 18, 64])
+def test_decode_splits_cover_the_table_in_whole_blocks(tokens, table_width):
+    """The decode kernel's split count comes from host sizes alone: at least
+    one, at most the table's width, every split the same whole number of
+    blocks and the last one holding at least one; more tokens never mean
+    more splits; and a split call's partials and counters fit the fixed
+    sizes of a ``DecodeWorkspace``, which never grows."""
+    splits = pa.decode_splits(tokens, 8, table_width, 132)
+    per_split = -(-table_width // splits)
+    assert 1 <= splits <= table_width
+    assert (splits - 1) * per_split < table_width <= splits * per_split
+    assert pa.decode_splits(2 * tokens, 8, table_width, 132) <= splits
+    assert pa.decode_splits(tokens, 8, table_width, 132) == splits  # no state
+    for hq, d in ((8, 256), (32, 128), (256, 64)):  # GQA rep 1, 4 and 32
+        need = pa._decode_sizes(tokens, hq, 8, d, splits)
+        room = pa._workspace_sizes(hq, 8, d, 132)
+        assert splits == 1 or (need[0] <= room[0] and need[1] <= room[1])
+
+
+def test_decode_workspace_lives_on_the_card():
+    """The decode kernel's workspace is made on a CUDA device; the CPU's
+    plain version needs none, and a paged cache on the CPU holds none."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        pa.DecodeWorkspace("cpu", 32, 8, 128)
+    cache = llama.init_paged_cache(llama.LlamaConfig.tiny(), 4, 4)
+    assert sorted(cache) == ["k", "v"]
