@@ -34,6 +34,14 @@ Training mutants (``flash_fwd.cu``, ``flash_bwd.cu``; the ``_mma_`` and
   the gradients, limit 1e-3; 4-step trajectory abs error, limit 1e-3) and
   bf16 at 4 layers (gradients, limit 5e-2).
 
+Device-path mutants (``inference/ragged.py``, the device-resident engine;
+the edited module is loaded under a name of its own, the package's is not
+touched):
+- ``parity_device_fp32``: chip_smoke.py's parity_device readings: whether
+  greedy tokens of the device-resident engine, without and with run-ahead
+  48, equal the host-staged engine's (8 requests x 48 tokens, 2 layers at
+  full width, fp32), and how many graphs each replayed.
+
 Run from the repository root:
 
     python3 chip_mutants.py
@@ -49,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import traceback
+import types
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
@@ -119,6 +128,18 @@ MUTANTS = {
         "paged_prefill.cu", "const float scale_log2 = scale * 1.4426950408889634f;",
         "const float scale_log2 = (scale * 1.0078125f) * 1.4426950408889634f;"),
 }
+# name -> (module of the port, its text, the replacement): the device path
+PY_MUTANTS = {
+    # the readback reads a graph's static output, which the next replay of
+    # that graph has overwritten by the time the dispatch is reconciled
+    "graph_output_not_copied": ("deepspeed_tpu_torch.inference.ragged",
+                                "        host.copy_(out, non_blocking=True)\n",
+                                "        host = out\n"),
+    # a run-ahead chunk leaves each slot's position row where it was
+    "pos_row_not_advanced": ("deepspeed_tpu_torch.inference.ragged",
+                             "            pos_st.index_add_(0, sl, torch.where(real, k, 0)"
+                             ".to(torch.int32))\n", ""),
+}
 # the kernels each source is compiled into
 BUILT_FROM = {"paged_decode.cu": ("paged_decode",),
               "paged_prefill.cu": ("paged_prefill",),
@@ -167,6 +188,23 @@ def build_variants(build) -> tuple[dict[str, dict[str, ctypes.CDLL]], list[Path]
     return libs, list(dirs.values())
 
 
+def mutant_module(tag: str):
+    """The module of ``PY_MUTANTS[tag]`` with its edit, loaded under a name
+    of its own (the real module stays as it is)."""
+    import importlib
+
+    name, old, new = PY_MUTANTS[tag]
+    real = importlib.import_module(name)
+    text = Path(real.__file__).read_text()
+    if text.count(old) != 1:
+        raise AssertionError(f"mutant {tag}: {old!r} is not once in {name}")
+    mod = types.ModuleType(f"{name}_mutant_{tag}")
+    mod.__file__ = real.__file__
+    sys.modules[mod.__name__] = mod  # dataclasses look their module up
+    exec(compile(text.replace(old, new), f"{real.__file__} ({tag})", "exec"), mod.__dict__)
+    return mod
+
+
 def use(build, libs: dict[str, ctypes.CDLL]) -> None:
     """Make the kernel wrappers launch ``libs`` from now on."""
     with build._LOCK:
@@ -211,7 +249,7 @@ def main() -> int:
 
         # bf16, 32 layers: capture a mixed step with the correct kernels
         cfg = llama.LlamaConfig.llama3_8b()
-        rcfg = ragged.RaggedConfig(**smoke.ENGINE)
+        rcfg = ragged.RaggedConfig(**smoke.ENGINE, device_state=False)
         use(_build, libs["correct"])
         eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16,
                                            seed=0)
@@ -272,6 +310,14 @@ def main() -> int:
                 "fp32": {k: parity["fp32"][k] for k in ("loss_abs_err", "max_rel_frobenius_err",
                                                         "trajectory_max_abs_err")},
                 "bf16": {"max_rel_frobenius_err": parity["bf16"]["max_rel_frobenius_err"]}}
+        # the device path: correct engine, then each Python mutant
+        use(_build, libs["correct"])
+        for tag in ["correct", *PY_MUTANTS]:
+            mod = ragged if tag == "correct" else mutant_module(tag)
+            res = smoke.parity_device(torch, np, llama, mod)
+            rows.setdefault(tag, {"variant": tag})["parity_device_fp32"] = {
+                k: res[k] for k in ("device_tokens_identical", "run_ahead_tokens_identical",
+                                    "graph_replays")}
         for row in rows.values():
             print(json.dumps(row), flush=True)
     finally:

@@ -69,11 +69,14 @@ def main() -> int:
     failed = False
     with tempfile.TemporaryDirectory(prefix="dstpu-sass-") as tmp, \
             ThreadPoolExecutor(max_workers=2 * len(_build.KERNELS)) as ex:
+        # a source only one tree has counts as an empty build in the other
         jobs = {(tree, name): ex.submit(compile_tree, tree, name, Path(tmp))
-                for tree in (Path("."), args.against) for name in _build.KERNELS}
+                for tree in (Path("."), args.against) for name in _build.KERNELS
+                if (tree / CSRC / f"{name}.cu").exists()}
         for name in _build.KERNELS:
-            (ours, our_regs), (theirs, their_regs) = (jobs[(t, name)].result()
-                                                      for t in (Path("."), args.against))
+            (ours, our_regs), (theirs, their_regs) = (
+                jobs[(t, name)].result() if (t, name) in jobs else ({}, {})
+                for t in (Path("."), args.against))
             picked = sorted(f for f in set(ours) | set(theirs)
                             if any(k in f for k in args.kernels))
             rows = []

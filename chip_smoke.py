@@ -18,17 +18,27 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    backward kernels' ``kernel_time`` lines add an estimate, not a
    measurement, of their part of SDPA's one backward call: its time times
    their share of the pair's flops); then ``head_dims``: all five kernels
-   against their plain versions at head dims 16, 80, 96 and 256 in fp32
-   and bf16, and a few training steps of ``LlamaConfig.tiny()`` (head dim
+   against their plain versions at head dims 16, 80, 96, 256, 264, 384
+   and 512 in fp32 and bf16, and a few training steps of ``LlamaConfig.tiny()`` (head dim
    16) through the flash kernels;
 4. engine: 32 requests x 48 greedy tokens through ``put()`` and
-   ``generate_all()``, run twice on one engine, the second run reported,
-   with the kernels' launch counts taken over that run alone; then a third
-   run under ``torch.profiler`` for device time by kernel class;
+   ``generate_all()`` on the host-staged path (``device_state=False``), run
+   twice on one engine, the second run reported, with the kernels' launch
+   counts taken over that run alone; then a third run under
+   ``torch.profiler`` for device time by kernel class;
 5. parity: a mixed decode + prefill-tile step replayed through the kernels
    and through the plain attention path (bf16, 32 layers), and the same in
    fp32 on a 2-layer full-width model together with greedy tokens of a short
    run through both paths;
+5a. engine_device: the same workload on the reference's default serving
+   path: device-resident scheduler state with decode run-ahead 48, its
+   decode-only programs replayed as CUDA graphs; warm-up run, measured run
+   (graph replays, eager dispatches, H2D bytes in all and in steady decode,
+   launches counted per replay), then a profiled run;
+5b. parity_device: greedy tokens of the device-resident engine, with and
+   without run-ahead, against the host-staged engine (fp32, 2 layers at
+   full width), and one captured decode-step graph of the 32-layer bf16
+   model against ``llama.ragged_forward`` called eagerly;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -553,7 +563,9 @@ def flash_kernel_phase(torch, fa):
 
 
 # --------------------------------------------------------------- head dims
-HEAD_DIMS = (16, 80, 96, 256)  # taken by the reference's kernels, besides 64 and 128
+# taken by the reference's kernels, besides 64 and 128; above 256 the wide
+# kernels (csrc/wide_head.cu)
+HEAD_DIMS = (16, 80, 96, 256, 264, 384, 512)
 HEAD_DIM_FLASH = (1, 1000, 8, 2)  # (B, S, Hq, Hkv): GQA rep 4, S off the 128-row tile
 
 
@@ -732,7 +744,7 @@ def profile_phase(torch, work, phase="profile"):
 
 def engine_phase(torch, np, llama, ragged, pa):
     cfg = llama.LlamaConfig.llama3_8b()
-    rcfg = ragged.RaggedConfig(**ENGINE)
+    rcfg = ragged.RaggedConfig(**ENGINE, device_state=False)
     t0 = time.perf_counter()
     eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -772,7 +784,8 @@ def engine_phase(torch, np, llama, ragged, pa):
     plain_calls = (pa.paged_decode_attention_ref.calls
                    + pa.ragged_prefill_attention_ref.calls)
     gen = sum(len(v) for v in out.values())
-    emit("engine_run", requests=len(out), new_tokens_each=MAX_NEW, generated_tokens=gen,
+    emit("engine_run", path="host-staged", requests=len(out), new_tokens_each=MAX_NEW,
+         generated_tokens=gen,
          prompt_tokens=int(sum(len(p) for p in prompts)), wall_s=wall,
          generated_tokens_per_s=gen / wall, warmup_wall_s=warm_s,
          steps=eng.dispatch_count - steps0, preemptions=eng.preemptions,
@@ -790,6 +803,7 @@ def engine_phase(torch, np, llama, ragged, pa):
         raise AssertionError(f"plain attention ran {plain_calls} times on the main path")
     if eng.allocator.free_blocks != rcfg.num_blocks - 1:
         raise AssertionError("KV blocks leaked")
+    max_memory = torch.cuda.max_memory_allocated()
 
     profile_phase(torch, lambda: run(eng, prompts, MAX_NEW))
     if cap.saved is None:
@@ -801,15 +815,16 @@ def engine_phase(torch, np, llama, ragged, pa):
         raise AssertionError(f"bf16 logits rel err {res['rel_frobenius_err']} > 5e-2")
     del eng, cap
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(max_memory_allocated_bytes=max_memory,
+                          generated_tokens_per_s=gen / wall)
 
 
 def parity_fp32_phase(torch, np, llama, ragged):
     """2 of Llama-3-8B's 32 layers at full width, fp32: logits of a mixed
     step through the kernels vs the plain path (atol 1e-3), and greedy tokens
-    of 8 short requests through each path."""
+    of 8 short requests through each path (host-staged engines)."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
-    rcfg = ragged.RaggedConfig(**ENGINE)
+    rcfg = ragged.RaggedConfig(**ENGINE, device_state=False)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = llama.init_params(cfg, gen, torch.float32, "cuda")
     rng = np.random.default_rng(2)
@@ -841,6 +856,201 @@ def parity_fp32_phase(torch, np, llama, ragged):
         raise AssertionError("fp32 greedy tokens differ between kernels and plain path")
     del params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- device-resident
+RUN_AHEAD = 48  # bench.py:289,324's decode_run_ahead
+
+
+def engine_counters(eng) -> dict:
+    p = eng.programs
+    return dict(steps=eng.dispatch_count, graph_replays=p.replays,
+                decode_launches_in_replays=p.replayed[0],
+                prefill_launches_in_replays=p.replayed[1],
+                eager_dispatches=p.eager_runs, graph_captures=p.captures,
+                run_ahead_dispatches=eng.run_ahead_dispatches,
+                run_ahead_tokens=eng.run_ahead_tokens, host_stage_ns=eng.host_stage_ns,
+                readback_ns=eng.readback_ns, h2d_bytes=eng.h2d_bytes,
+                steady_dispatches=eng.steady_dispatches,
+                steady_stage_bytes=eng.steady_stage_bytes,
+                steady_clean_dispatches=eng.steady_clean_dispatches,
+                steady_h2d_bytes=eng.steady_h2d_bytes)
+
+
+def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
+    """The serving workload on the reference's default path: device-resident
+    state, decode run-ahead 48, decode-only programs replayed as CUDA graphs.
+    A warm-up run (it captures the graphs), then the measured run with every
+    count zeroed just before it, then a profiled run. Returns the measured
+    run's kernel launches and the engine (parity_device reads its model)."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    rcfg = ragged.RaggedConfig(**ENGINE, device_state=True, decode_run_ahead=RUN_AHEAD)
+    t0 = time.perf_counter()
+    eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = requests(np, cfg.vocab_size)
+    t0 = time.perf_counter()
+    out = run(eng, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if any(len(v) != MAX_NEW for v in out.values()):
+        raise AssertionError("device warm-up run: a request did not return 48 tokens")
+
+    before = engine_counters(eng)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_counts()
+    sampler = PowerSampler()
+    try:
+        t0 = time.perf_counter()
+        out = run(eng, prompts, MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        power = sampler.stop()
+    launches = {"paged_decode": pa.paged_decode_attention.launches,
+                "paged_prefill": pa.ragged_prefill_attention.launches}
+    plain_calls = (pa.paged_decode_attention_ref.calls
+                   + pa.ragged_prefill_attention_ref.calls)
+    d = {k: v - before[k] for k, v in engine_counters(eng).items()}
+    gen = sum(len(v) for v in out.values())
+    # every request's first token comes from its prompt-completing step
+    decode_tokens = gen - len(out)
+    emit("engine_device", path=f"device-resident, run-ahead {RUN_AHEAD}, CUDA graphs",
+         requests=len(out), new_tokens_each=MAX_NEW, generated_tokens=gen, wall_s=wall,
+         generated_tokens_per_s=gen / wall, warmup_wall_s=warm_s, init_s=init_s,
+         steps=d["steps"], graph_replays=d["graph_replays"],
+         eager_dispatches=d["eager_dispatches"], graph_captures=d["graph_captures"],
+         kernel_launches_in_replays={"paged_decode": d["decode_launches_in_replays"],
+                                     "paged_prefill": d["prefill_launches_in_replays"]},
+         graphs=eng.programs.graphs, run_ahead_dispatches=d["run_ahead_dispatches"],
+         run_ahead_tokens=d["run_ahead_tokens"],
+         run_ahead_share_of_decode_tokens=d["run_ahead_tokens"] / decode_tokens,
+         host_stage_s=d["host_stage_ns"] / 1e9, readback_s=d["readback_ns"] / 1e9,
+         h2d_bytes=d["h2d_bytes"], steady_dispatches=d["steady_dispatches"],
+         steady_stage_bytes=d["steady_stage_bytes"],
+         steady_clean_dispatches=d["steady_clean_dispatches"],
+         steady_h2d_bytes=d["steady_h2d_bytes"], kernel_launches=launches,
+         plain_version_calls=plain_calls, free_blocks=eng.allocator.free_blocks,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         host_staged_max_memory_allocated_bytes=host_run["max_memory_allocated_bytes"],
+         host_staged_generated_tokens_per_s=host_run["generated_tokens_per_s"],
+         nvidia_smi=nvidia_smi("name", "power.limit"), **power)
+    if len(out) != N_REQ or any(len(v) != MAX_NEW for v in out.values()):
+        raise AssertionError("engine_device: a request did not return 48 tokens")
+    if any(not 0 <= t < cfg.vocab_size for v in out.values() for t in v):
+        raise AssertionError("engine_device: a token outside the vocabulary")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"engine_device: a kernel of the path was never launched: "
+                             f"{launches}")
+    if plain_calls:
+        raise AssertionError(f"engine_device: plain attention ran {plain_calls} times")
+    if eng.allocator.free_blocks != rcfg.num_blocks - 1:
+        raise AssertionError("engine_device: KV blocks leaked")
+    # steady decode: decode-only dispatches over the previous one's batch
+    # stage nothing, and those with no dirty table row upload nothing at all
+    if (d["steady_clean_dispatches"] <= 0 or d["steady_stage_bytes"]
+            or d["steady_h2d_bytes"]):
+        raise AssertionError(
+            f"engine_device: steady decode staged {d['steady_stage_bytes']} bytes over "
+            f"{d['steady_dispatches']} dispatches, and uploaded {d['steady_h2d_bytes']} "
+            f"over the {d['steady_clean_dispatches']} with no dirty table row")
+    if d["graph_replays"] <= 0:
+        raise AssertionError("engine_device: no CUDA graph was replayed")
+    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_device")
+    return launches, eng
+
+
+def graph_vs_eager(torch, np, llama, eng) -> dict:
+    """One decode step of 32 tokens over the 32-layer bf16 model: captured
+    as a CUDA graph (``ProgramCache``) and replayed, against
+    ``llama.ragged_forward`` called eagerly on the same inputs and its own
+    copy of the cache. The 32 sequences own the pool's 576 blocks between
+    them (a permutation), so no two tokens write one KV row."""
+    from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
+
+    cfg = eng.spec.config
+    rcfg = eng.cfg
+    rng = np.random.default_rng(5)
+    t = rcfg.max_seqs
+    bt = np.zeros((t + 1, rcfg.max_blocks_per_seq), np.int32)
+    bt[:t] = rng.permutation(np.arange(1, rcfg.num_blocks)).reshape(t, -1)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, t), **i32)
+    slots = torch.arange(t, **i32)
+    positions = torch.tensor(rng.integers(0, rcfg.max_seq_len, t), **i32)
+    bt = torch.tensor(bt, **i32)
+
+    def cache_copy():
+        return {k: (v.clone() if k in ("k", "v") else v) for k, v in eng.cache.items()}
+
+    cache_g = cache_copy()
+    programs = ProgramCache("cuda")
+    for _ in range(3):  # eager on the side stream and captured, then replayed twice
+        got = programs.run("decode_step", lambda: llama.ragged_forward(
+            cfg, eng.params, tokens, slots, positions, bt, cache_g)[0])
+    want, _ = llama.ragged_forward(cfg, eng.params, tokens, slots, positions, bt,
+                                   cache_copy())
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits in the graph or eager decode step")
+    return dict(tokens=t, layers=cfg.num_layers, graph_replays=programs.replays,
+                bit_identical=bool(torch.equal(got, want)),
+                rel_frobenius_err=((got - want).norm() / want.norm()).item(),
+                max_abs_err=(got - want).abs().max().item(),
+                top1_identical=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+
+
+def parity_device(torch, np, llama, ragged) -> dict:
+    """2 of Llama-3-8B's 32 layers at full width, fp32: greedy tokens of 8
+    requests x 48 new tokens through the device-resident engine, without
+    and with run-ahead 48, against the host-staged engine. Each engine
+    serves the requests twice: the first run captures each decode-only
+    program at its first dispatch, the second replays them all."""
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                               torch.float32, "cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+               for n in (40, 64, 100, 33, 150, 7, 80, 129)]
+    toks, replays = {}, {}
+    for name, over in (("host_staged", dict(device_state=False)),
+                       ("device", dict(device_state=True)),
+                       ("device_run_ahead", dict(device_state=True,
+                                                 decode_run_ahead=RUN_AHEAD))):
+        eng = ragged.RaggedInferenceEngine(llama.build(cfg), ragged.RaggedConfig(**ENGINE, **over),
+                                           dtype=torch.float32, params=params)
+        toks[name] = [run(eng, prompts, MAX_NEW) for _ in range(2)]
+        replays[name] = eng.programs.replays
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    want = toks["host_staged"][0]
+    return dict(requests=len(prompts), new_tokens_each=MAX_NEW, runs=2, graph_replays=replays,
+                host_staged_runs_identical=toks["host_staged"][1] == want,
+                device_tokens_identical=all(t == want for t in toks["device"]),
+                run_ahead_tokens_identical=all(t == want for t in toks["device_run_ahead"]))
+
+
+GRAPH_REL_FRO = 1e-3
+
+
+def parity_device_phase(torch, np, llama, ragged, eng) -> None:
+    res = parity_device(torch, np, llama, ragged)
+    emit("parity_device_fp32", model="llama3_8b widths", layers=2,
+         reduced="depth 32 -> 2 layers", **res)
+    g = graph_vs_eager(torch, np, llama, eng)
+    emit("parity_device_graph_bf16", model="llama3_8b", **g, rel_frobenius_bound=GRAPH_REL_FRO)
+    if not (res["device_tokens_identical"] and res["run_ahead_tokens_identical"]
+            and res["host_staged_runs_identical"]):
+        raise AssertionError(f"parity_device: fp32 greedy tokens differ from the host-staged "
+                             f"engine's: {res}")
+    if min(res["graph_replays"]["device"], res["graph_replays"]["device_run_ahead"]) <= 0:
+        raise AssertionError(f"parity_device: a device engine replayed no graph: {res}")
+    if not (g["rel_frobenius_err"] <= GRAPH_REL_FRO and g["top1_identical"]):
+        raise AssertionError(f"parity_device: the replayed graph's logits are outside "
+                             f"{GRAPH_REL_FRO} or its top-1 differs: {g}")
 
 
 # ------------------------------------------------------------------- train
@@ -1074,8 +1284,13 @@ def main() -> int:
     head_dims_phase(torch, np, pa, fa, llama, engine_mod)
 
     # 4. the serving path, and 5. its parity
-    launches = engine_phase(torch, np, llama, ragged, pa)
+    launches, host_run = engine_phase(torch, np, llama, ragged, pa)
     parity_fp32_phase(torch, np, llama, ragged)
+    # 5a. the device-resident serving path, and 5b. its parity
+    device_launches, eng = engine_device_phase(torch, np, llama, ragged, pa, host_run)
+    parity_device_phase(torch, np, llama, ragged, eng)
+    del eng
+    torch.cuda.empty_cache()
 
     # 6. the training path, and 7. its parity
     launches.update(train_phase(torch, np, llama, engine_mod, fa))
@@ -1099,6 +1314,7 @@ def main() -> int:
                             launches=launches[name],
                             launches_per=("engine run" if name.startswith("paged")
                                           else "training step"),
+                            launches_engine_device=device_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

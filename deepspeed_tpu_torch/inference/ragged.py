@@ -1,5 +1,5 @@
 """Ragged / continuous-batching inference engine (counterpart of
-``deepspeed_tpu/inference/ragged.py``), host-staged path.
+``deepspeed_tpu/inference/ragged.py``).
 
 Every engine step processes a fixed budget of tokens that mixes ongoing
 decodes (one token per sequence, scheduled first) with prompt-prefill
@@ -9,12 +9,25 @@ sequence's blocks through the block table with the hand-written CUDA
 kernels (``ops/cuda``). The scheduler pads the token batch to a power-of-2
 bucket onto scratch block 0 through the all-zero padding row ``max_seqs``.
 
-Scheduling matches the JAX engine's host-staged path
-(``RaggedConfig(device_state=False)``) decision for decision: the same
-buckets, admission order, tile plan and padding, so greedy tokens agree.
-The JAX engine's device-resident, run-ahead, fused, sched and spec dispatch
-modes, the prefix cache, KV tiers, low-bit pools, handoff, telemetry, fault
-injection and seeded sampling are not ported yet (``ROADMAP.md``).
+Two dispatch paths, as in the JAX engine, with the same scheduling decision
+for decision (buckets, admission order, tile plan, padding), so greedy
+tokens agree with the JAX engine's in each:
+
+- device-resident state (``RaggedConfig(device_state=True)``, the default):
+  per-slot rows (last token, next position, sampling parameters) and the
+  block table live on the device and the programs update them in place; a
+  dispatch stages one packed int32 buffer, which steady decode does not
+  upload at all, and the picked tokens are read back one dispatch behind.
+  On a CUDA device the decode-only programs replay as CUDA graphs
+  (``inference/cuda_graphs.py``);
+- host-staged (``device_state=False``): every dispatch uploads its token,
+  slot, position and table arrays and reads its tokens back at once.
+
+Both run plain or tiled SplitFuse steps, and with ``decode_run_ahead`` K
+greedy decode steps in one dispatch when every running sequence decodes.
+The JAX engine's fused, sched and spec modes, the prefix cache, KV tiers,
+low-bit pools, handoff, telemetry, fault injection and seeded sampling are
+not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
 from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -196,10 +210,22 @@ class RaggedConfig:
     block_size: int = 16
     num_blocks: int = 257  # 256 usable + scratch
     max_blocks_per_seq: int = 32
+    # decode run-ahead: when every running sequence decodes, run up to this
+    # many greedy decode steps in ONE dispatch (the next token fed back on
+    # the device), rounded down to a power of two. 0 disables.
+    decode_run_ahead: int = 0
     # tiled prefill: lay prefill chunks at tile-aligned offsets so the tiled
     # kernel fetches each KV block once per TILE instead of once per token.
     # 0 disables (per-token kernel for everything).
     prefill_tile: int = 0
+    # with arrivals queued but unadmittable (a free slot, but the pool cannot
+    # cover the reservation), run-ahead fuses at most this many steps:
+    # decode progress is what frees blocks
+    run_ahead_admission_cap: int = 8
+    # device-resident scheduler state: slot rows and the block table live on
+    # the device, steady decode stages nothing, readback runs one dispatch
+    # behind. False: the host-staged path (token-identical).
+    device_state: bool = True
 
     @property
     def max_seq_len(self) -> int:
@@ -227,6 +253,9 @@ class _SeqState:
     # retires the sequence
     deadline: float = 0.0
     status: str = "finished"
+    # dispatches in flight (not yet reconciled) that reference this
+    # sequence: its blocks and slot are released only when they drain
+    refs: int = 0
 
     def token_at(self, p: int) -> int:
         if p < len(self.prompt):
@@ -317,13 +346,51 @@ class RaggedInferenceEngine:
             self._dec_buckets.append(b)
             b *= 2
         self._dec_buckets.append(self.cfg.max_seqs)
+        # ---- device-resident scheduler state (cfg.device_state) ----
+        # per-slot rows (+1 scratch row at max_seqs): last token, next
+        # position, seed, prompt length, temperature, top-k, top-p. Written
+        # in place at admission (_write_slot_row) and by the programs
+        # themselves (picked token, advanced position).
+        s1 = self.cfg.max_seqs + 1
+        i32 = dict(dtype=torch.int32, device=self.device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._dev_state = (
+            torch.zeros(s1, **i32), torch.zeros(s1, **i32), torch.zeros(s1, **i32),
+            torch.zeros(s1, **i32), torch.zeros(s1, **f32), torch.zeros(s1, **i32),
+            torch.ones(s1, **f32))
+        # device block table: the host table stays ground truth; rows dirtied
+        # by allocation or release are delta-uploaded into this one tensor
+        # (the programs and their graphs read it in place)
+        self._bt_dev = torch.zeros((s1, self.cfg.max_blocks_per_seq), **i32)
+        self._bt_dirty: set[int] = set()
+        # one staging buffer per staged length: (bytes last written, tensor)
+        self._staging: dict[int, list] = {}
+        # dispatched, not yet reconciled (readback one dispatch behind)
+        self._pending: list[dict] = []
+        self.programs = ProgramCache(self.device)
+        self._on_card = self.device.type == "cuda"
         # scheduling and dispatch accounting
         self.tokens_scheduled = 0
         self.tokens_padded = 0
         self.dispatch_count = 0
         self.preemptions = 0
         self.host_stage_ns = 0
+        self.readback_ns = 0
         self.h2d_bytes = 0
+        # steady decode: device dispatches whose rows all decode over the
+        # previous dispatch's batch (the same slots in the same staged
+        # layout). Their staging bytes, and the H2D bytes of those among
+        # them that found no table row dirty (a row grows a block now and
+        # then, and is uploaded), are both 0 when the path works.
+        self.stage_bytes = 0
+        self.steady_dispatches = 0
+        self.steady_stage_bytes = 0
+        self.steady_clean_dispatches = 0
+        self.steady_h2d_bytes = 0
+        self._last_batch = None
+        # run-ahead dispatches and the real tokens they scheduled (K a row)
+        self.run_ahead_dispatches = 0
+        self.run_ahead_tokens = 0
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
@@ -372,7 +439,7 @@ class RaggedInferenceEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queued or self._running)
+        return bool(self._queued or self._running or self._pending)
 
     @property
     def finished_uids(self):
@@ -409,7 +476,9 @@ class RaggedInferenceEngine:
 
     def _sweep_aborts(self) -> None:
         """Retire cancelled/deadline-expired sequences (queued AND running)
-        at the top of every step, so an abort never outlives one step."""
+        at the top of every step, so an abort never outlives one step. A
+        running one referenced by a dispatch in flight (``refs`` > 0) is
+        released by ``_reconcile_pending`` as its references drain."""
         now = None
         for seq in (*self._queued, *self._running.values()):
             if seq.status == "finished" and seq.deadline:
@@ -423,7 +492,7 @@ class RaggedInferenceEngine:
             for seq in aborted:
                 self._results[seq.uid] = seq
         for seq in list(self._running.values()):
-            if seq.status != "finished":
+            if seq.status != "finished" and seq.refs == 0:
                 self._release(seq)
 
     # ------------------------------------------------------------ capacity
@@ -449,6 +518,7 @@ class RaggedInferenceEngine:
         seq.reserved_remaining -= drawn
         self._reserved -= drawn
         self.block_tables[seq.slot, start:start + len(new)] = new
+        self._bt_dirty.add(seq.slot)
         return True
 
     def _release(self, seq: _SeqState) -> None:
@@ -457,6 +527,7 @@ class RaggedInferenceEngine:
         self.allocator.free(seq.blocks)
         seq.blocks = []
         self.block_tables[seq.slot, :] = 0
+        self._bt_dirty.add(seq.slot)
         self._free_slots.append(seq.slot)
         del self._running[seq.slot]
         seq.slot = -1
@@ -514,6 +585,8 @@ class RaggedInferenceEngine:
             seq.reserved_remaining = worst
             self._reserved += worst
             self._running[seq.slot] = seq
+            if self.cfg.device_state:
+                self._write_slot_row(seq)
 
     def _plan_prefill_tiles(self, nd: int, budget: int):
         """Pick tile-aligned prompt chunks for this step. Returns
@@ -588,7 +661,14 @@ class RaggedInferenceEngine:
         self._sweep_aborts()
         if not self.has_work:
             return {}  # the sweep retired everything schedulable
+        if self.cfg.device_state:
+            return self._step_device()
+        # admission first: a newly admitted sequence is in prefill, which
+        # disables run-ahead for this step (the JAX engine's order)
         self._admit_queued()
+        ahead = self._try_decode_run_ahead()
+        if ahead is not None:
+            return ahead
         if self._use_tiles:
             return self._step_tiled()
         return self._step_plain()
@@ -690,14 +770,455 @@ class RaggedInferenceEngine:
         self._note_dispatch(t0)
         return self._emit_tokens(logits, emit)
 
+    # ----------------------------------------------------- decode run-ahead
+    def _decode_steps(self, k: int, toks, slots, positions, bt) -> torch.Tensor:
+        """K greedy decode steps over the paged cache, the next token fed
+        back on the device: ``[K, T]`` tokens. Pad rows (slot ``max_seqs``)
+        keep position 0, so their KV writes and reads stay in scratch block
+        0 and no gather leaves the table (the JAX engine clamps instead)."""
+        fwd = self.spec.ragged_forward_fn
+        real = slots != self.cfg.max_seqs
+        outs = []
+        for _ in range(k):
+            logits, _ = fwd(self.params, toks, slots, torch.where(real, positions, 0), bt,
+                            self.cache)
+            toks = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            outs.append(toks)
+            positions = positions + 1
+        return torch.stack(outs)
+
+    def _run_ahead_k(self, seqs, rem: int) -> int:
+        """The run-ahead depth for ``seqs`` (0: none): at most
+        ``decode_run_ahead`` (the admission cap while an unadmittable request
+        waits with a slot free) and ``rem``, shrunk until the pool covers K
+        more tokens of every sequence, then rounded down to a power of two."""
+        k_max = self.cfg.decode_run_ahead
+        if k_max < 2 or not seqs or any(not s.in_decode for s in seqs):
+            return 0
+        if self._queued and self._free_slots:
+            k_max = min(k_max, self.cfg.run_ahead_admission_cap)
+        k = min(k_max, rem)
+        while k >= 2 and not all(self._ensure_capacity(s, s.pos + k) for s in seqs):
+            k -= 1  # pool pressure: partial growth is kept, retry smaller
+        if k < 2:
+            return 0
+        return 1 << (k.bit_length() - 1)
+
+    def _try_decode_run_ahead(self) -> dict | None:
+        """Host-staged run-ahead: when every running sequence decodes, K
+        greedy steps in one dispatch, read back at once. Returns the emit
+        dict, or None to fall back to one SplitFuse step. Only the arrays a
+        greedy chunk reads are staged (the JAX engine also stages its
+        sampling planes)."""
+        seqs = list(self._running.values())
+        k = self._run_ahead_k(
+            seqs, min((s.max_new_tokens - len(s.generated) for s in seqs), default=0))
+        if not k:
+            return None
+        t0 = time.perf_counter()
+        t = len(seqs)
+        bucket = next(b for b in self._buckets if b >= t)
+        tokens = np.zeros(bucket, np.int32)
+        slots = np.full(bucket, self.cfg.max_seqs, np.int32)
+        positions = np.zeros(bucket, np.int32)
+        for j, s in enumerate(seqs):
+            tokens[j] = s.token_at(s.pos)
+            slots[j] = s.slot
+            positions[j] = s.pos
+        max_pos = max(s.pos + k - 1 for s in seqs)
+        out = self._decode_steps(k, self._h2d(tokens), self._h2d(slots), self._h2d(positions),
+                                 self._h2d(self._table_view(max_pos)))
+        self._note_dispatch(t0)
+        t1 = time.perf_counter()
+        out = out.cpu().numpy()  # [K, bucket]
+        self.readback_ns += int((time.perf_counter() - t1) * 1e9)
+        self.tokens_scheduled += k * t
+        self.tokens_padded += k * (bucket - t)
+        self.run_ahead_dispatches += 1
+        self.run_ahead_tokens += k * t
+        emit: dict = {}
+        for j, s in enumerate(seqs):
+            for i in range(k):
+                tok = int(out[i, j])
+                s.generated.append(tok)
+                s.pos += 1
+                emit[s.uid] = tok
+                if s.finished:
+                    break  # tokens past EOS stay in the pool; freed on release
+            if s.finished:
+                self._release(s)
+        return emit
+
+    # ------------------------------------------- device-resident dispatch
+    def _host(self, arr: np.ndarray) -> torch.Tensor:
+        """A copy of a host array to upload from: pinned on the card, so the
+        upload does not block the host (the caching host allocator keeps the
+        pinned block until the copy has run)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        return src.pin_memory() if self._on_card else src.clone()
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device, without blocking the host."""
+        return self._host(arr).to(self.device, non_blocking=True)
+
+    def _write_slot_row(self, seq: _SeqState) -> None:
+        """Admission: write one slot's persistent device row in place. The
+        last token is 0 until the prompt-completing dispatch picks one (a
+        sequence admitted past its prompt feeds its token at ``pos``)."""
+        tok = seq.token_at(seq.pos) if seq.pos >= len(seq.prompt) else 0
+        # greedy only: seed 0, top-k 0, temperature 0, top-p 1
+        iv = np.asarray([tok, seq.pos, 0, len(seq.prompt), 0], np.int32)
+        fv = np.asarray([0.0, 1.0], np.float32)
+        self.h2d_bytes += iv.nbytes + fv.nbytes + 4  # and the row index
+        ivd, fvd = self._upload(iv), self._upload(fv)
+        tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
+        for st, val in ((tok_st, ivd[0]), (pos_st, ivd[1]), (seed_st, ivd[2]),
+                        (plen_st, ivd[3]), (topk_st, ivd[4]), (temp_st, fvd[0]),
+                        (topp_st, fvd[1])):
+            st[seq.slot].copy_(val)
+
+    def _sync_bt(self) -> bool:
+        """Delta-upload the block-table rows dirtied since the last dispatch
+        into the device table, in place; the row count is bucketed to a
+        power of two, padding rows rewrite the all-zero scratch row. Returns
+        whether any row was dirty."""
+        if not self._bt_dirty:
+            return False
+        rows = sorted(self._bt_dirty)
+        self._bt_dirty.clear()
+        r = 1
+        while r < len(rows):
+            r *= 2
+        idx = np.full(r, self.cfg.max_seqs, np.int32)
+        idx[:len(rows)] = rows
+        vals = np.zeros((r, self.cfg.max_blocks_per_seq), np.int32)
+        vals[:len(rows)] = self.block_tables[rows]
+        self.h2d_bytes += idx.nbytes + vals.nbytes
+        self._bt_dev[self._upload(idx).long()] = self._upload(vals)
+        return True
+
+    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+        """The dispatch's packed int32 staging buffer: one tensor per staged
+        length, which the programs (and their graphs) read in place. Its
+        bytes are uploaded only when they differ from what it holds: steady
+        decode, whose slot and flag planes repeat, uploads nothing."""
+        arr = np.ascontiguousarray(arr, np.int32)
+        raw = arr.tobytes()
+        entry = self._staging.get(arr.shape[0])
+        if entry is None:
+            entry = self._staging[arr.shape[0]] = [
+                None, torch.zeros(arr.shape[0], dtype=torch.int32, device=self.device)]
+        if entry[0] != raw:
+            entry[1].copy_(self._host(arr), non_blocking=True)
+            entry[0] = raw
+            self.h2d_bytes += arr.nbytes
+            self.stage_bytes += arr.nbytes
+        return entry[1]
+
+    def _readback(self, out: torch.Tensor):
+        """Start copying a dispatch's tokens to the host, in stream order
+        right behind the dispatch: a graph's output is overwritten by its
+        next replay, which the window of two dispatches enqueues before this
+        one is reconciled. Returns (host tensor, event or None)."""
+        if not self._on_card:
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _note_steady(self, decode_only: bool, dirty: bool, batch, h2d0: int,
+                     stage0: int) -> None:
+        """Steady-decode accounting of a device dispatch (see __init__);
+        ``batch``: the staged length and the slots of the dispatch."""
+        steady = decode_only and batch == self._last_batch
+        self._last_batch = batch if decode_only else None
+        if steady:
+            self.steady_dispatches += 1
+            self.steady_stage_bytes += self.stage_bytes - stage0
+            if not dirty:
+                self.steady_clean_dispatches += 1
+                self.steady_h2d_bytes += self.h2d_bytes - h2d0
+
+    def _get_dev_step(self, t: int, nd: int, nt: int, w: int, staged: torch.Tensor):
+        """Device-resident SplitFuse step (plain or tiled) over ``staged``
+        (tokens | slots | positions | flags, then the tile planes): decode
+        rows (flag bit 0) take their token and position from the slot rows;
+        the greedy pick is taken on the device; the slot rows are updated in
+        place (the picked token where flag bit 1 is set, the position by a
+        max-scatter). Returns the program; its output is the picked
+        ``[t]`` tokens."""
+        fwd = self.spec.ragged_forward_fn
+        ct = self.cfg.prefill_tile if self._use_tiles else 0
+        max_seqs = self.cfg.max_seqs
+        ntl = max(nt, 1)
+        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
+
+        def step_fn():
+            tokens, slots = staged[0:t], staged[t:2 * t]
+            positions, flags = staged[2 * t:3 * t], staged[3 * t:4 * t]
+            feed = (flags & 1) > 0
+            real = slots != max_seqs
+            sl = slots.long()
+            tokens = torch.where(feed, tok_st[sl], tokens)
+            positions = torch.where(feed & real, pos_st[sl], positions)
+            tiles = None
+            if ct:
+                tiles = (nd, staged[4 * t:4 * t + ntl], staged[4 * t + ntl:4 * t + 2 * ntl],
+                         staged[4 * t + 2 * ntl:4 * t + 3 * ntl], ct)
+            logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
+                            prefill_tiles=tiles)
+            picked = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            em = ((flags & 2) > 0) & real
+            sl_t = torch.where(em, slots, max_seqs).long()
+            tok_st.index_put_((sl_t,), torch.where(em, picked, tok_st[sl_t]))
+            sl_p = torch.where(real, slots, max_seqs).long()
+            pos_st.scatter_reduce_(0, sl_p, torch.where(real, positions + 1, 0), "amax")
+            return picked
+
+        return step_fn
+
+    def _get_dev_chunk(self, k: int, t: int, w: int, staged: torch.Tensor):
+        """Device-resident run-ahead: K greedy decode steps whose feed token
+        and start position come from the slot rows; ``staged`` holds only
+        the slot ids. Afterwards each real slot's token row holds its last
+        pick and its position row has advanced by K. Output: ``[K, t]``."""
+        max_seqs = self.cfg.max_seqs
+        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
+
+        def chunk_fn():
+            slots = staged[:t]
+            real = slots != max_seqs
+            sl = torch.where(real, slots, max_seqs).long()
+            out = self._decode_steps(k, tok_st[sl], slots, torch.where(real, pos_st[sl], 0), bt)
+            tok_st.index_put_((sl,), torch.where(real, out[-1], tok_st[sl]))
+            pos_st.index_add_(0, sl, torch.where(real, k, 0).to(torch.int32))
+            return out
+
+        return chunk_fn
+
+    def _dispatch_chunk_device(self) -> bool:
+        """Device-state run-ahead: the same eligibility and capacity rules as
+        the host-staged one (the budget counted from ``pos``, which runs
+        ahead of ``generated`` by the pending window), only the slot ids
+        staged, and the tokens left in a pending record."""
+        cfg = self.cfg
+        seqs = [s for s in self._running.values() if not s.finished]
+        k = self._run_ahead_k(
+            seqs, min((len(s.prompt) + s.max_new_tokens - s.pos for s in seqs), default=0))
+        if not k:
+            return False
+        t0 = time.perf_counter()
+        h2d0, stage0 = self.h2d_bytes, self.stage_bytes
+        t = len(seqs)
+        bucket = next(b for b in self._buckets if b >= t)
+        slots = np.full(bucket, cfg.max_seqs, np.int32)
+        for j, s in enumerate(seqs):
+            slots[j] = s.slot
+        max_pos = max(s.pos + k - 1 for s in seqs)
+        dirty = self._sync_bt()
+        staged = self._stage(slots)
+        w = self._table_width(max_pos)
+        out = self.programs.run(("chunk", k, bucket, w),
+                                self._get_dev_chunk(k, bucket, w, staged))
+        emits = []
+        for s in seqs:
+            s.pos += k
+            s.refs += 1
+            emits.append((s, k))
+        self.tokens_scheduled += k * t
+        self.tokens_padded += k * (bucket - t)
+        self.run_ahead_dispatches += 1
+        self.run_ahead_tokens += k * t
+        self._pending.append({"kind": "chunk", "out": self._readback(out), "emits": emits,
+                              "participants": seqs})
+        self._note_dispatch(t0)
+        self._note_steady(True, dirty, (bucket, tuple(slots)), h2d0, stage0)
+        return True
+
+    def _dispatch_step_device(self) -> bool:
+        """Device-state SplitFuse step: decodes and prefill chunks scheduled
+        as the host-staged path schedules them, staged as one packed buffer
+        (decode rows carry no token or position: those live on the device),
+        the picked tokens left in a pending record. False when nothing is
+        schedulable."""
+        cfg = self.cfg
+        ct = cfg.prefill_tile if self._use_tiles else 0
+        budget = cfg.max_tokens_per_step
+        t0 = time.perf_counter()
+        h2d0, stage0 = self.h2d_bytes, self.stage_bytes
+        size = budget + ct
+        tokens = np.zeros(size, np.int32)
+        slots = np.full(size, cfg.max_seqs, np.int32)
+        positions = np.zeros(size, np.int32)
+        flags = np.zeros(size, np.int32)
+        emit: list[tuple[int, _SeqState]] = []
+        max_pos = 0
+        dec_cap = min(budget, cfg.max_seqs) if ct else budget
+        n_dec = 0
+        for seq in list(self._running.values()):
+            if seq.finished or not seq.in_decode or n_dec >= dec_cap:
+                continue
+            # the feed at limit - 1 yields the last budgeted token; one more
+            # may be scheduled and is discarded at reconcile (the JAX
+            # engine's slop)
+            if seq.pos >= len(seq.prompt) + seq.max_new_tokens:
+                continue  # fully scheduled; retires as its dispatches reconcile
+            if not self._ensure_capacity(seq, seq.pos + 1):
+                seq.preemptions += 1
+                self.preemptions += 1
+                continue
+            slots[n_dec] = seq.slot
+            flags[n_dec] = 3  # token and position from the slot rows | emit
+            emit.append((n_dec, seq))
+            max_pos = max(max_pos, seq.pos)
+            seq.pos += 1
+            n_dec += 1
+
+        ts = tpz = tv = None
+        if ct:
+            nd = 0 if n_dec == 0 else next(b for b in self._dec_buckets if b >= n_dec)
+            chunks, nt = self._plan_prefill_tiles(nd, budget)
+            ts = np.full(max(nt, 1), cfg.max_seqs, np.int32)
+            tpz = np.zeros(max(nt, 1), np.int32)
+            tv = np.zeros(max(nt, 1), np.int32)
+            sched = 0
+            for seq, tile0, take in chunks:
+                start = nd + tile0 * ct
+                sl = slice(start, start + take)
+                tokens[sl] = seq.prompt[seq.pos:seq.pos + take]
+                slots[sl] = seq.slot
+                positions[sl] = np.arange(seq.pos, seq.pos + take, dtype=np.int32)
+                for ti in range(-(-take // ct)):
+                    ts[tile0 + ti] = seq.slot
+                    tpz[tile0 + ti] = seq.pos + ti * ct
+                    tv[tile0 + ti] = min(ct, take - ti * ct)
+                max_pos = max(max_pos, seq.pos + take - 1)
+                seq.pos += take
+                sched += take
+                if seq.pos == len(seq.prompt):
+                    flags[start + take - 1] |= 2
+                    emit.append((start + take - 1, seq))
+            n = n_dec + sched
+            t_total = nd + nt * ct
+        else:
+            nd = nt = 0
+            n = n_dec
+            for seq in list(self._running.values()):
+                if seq.finished or seq.in_decode or n >= budget:
+                    continue
+                take = min(budget - n, len(seq.prompt) - seq.pos)
+                while take and not self._ensure_capacity(seq, seq.pos + take):
+                    take -= 1  # partial chunk under pool pressure
+                if take <= 0:
+                    continue
+                sl = slice(n, n + take)
+                tokens[sl] = seq.prompt[seq.pos:seq.pos + take]
+                slots[sl] = seq.slot
+                positions[sl] = np.arange(seq.pos, seq.pos + take, dtype=np.int32)
+                max_pos = max(max_pos, seq.pos + take - 1)
+                seq.pos += take
+                n += take
+                if seq.pos == len(seq.prompt):
+                    flags[n - 1] |= 2
+                    emit.append((n - 1, seq))
+            t_total = 0 if n == 0 else next(b for b in self._buckets if b >= n)
+        if n == 0:
+            return False
+        self.tokens_scheduled += n
+        self.tokens_padded += t_total - n
+        parts = [tokens[:t_total], slots[:t_total], positions[:t_total], flags[:t_total]]
+        if ct:
+            parts += [ts, tpz, tv]
+        dirty = self._sync_bt()
+        staged = self._stage(np.concatenate(parts))
+        w = self._table_width(max_pos)
+        decode_only = n == n_dec
+        # decode-only steps replay as graphs; steps with prefill run eagerly
+        picked = self.programs.run(("step", t_total, nd, nt, w),
+                                   self._get_dev_step(t_total, nd, nt, w, staged),
+                                   capture=decode_only)
+        participants = list({seq.slot: seq for _, seq in emit}.values())
+        for seq in participants:
+            seq.refs += 1
+        self._pending.append({"kind": "step", "out": self._readback(picked), "emit": emit,
+                              "participants": participants})
+        self._note_dispatch(t0)
+        self._note_steady(decode_only, dirty, (staged.shape[0], tuple(slots[:t_total])), h2d0,
+                          stage0)
+        return True
+
+    def _append_tokens(self, seq: _SeqState, toks, out: dict) -> None:
+        """Fold a dispatch's tokens into ``seq``; tokens past its EOS or its
+        budget (scheduled ahead before the readback showed the end) are
+        discarded."""
+        for t in toks:
+            if seq.finished:
+                break
+            seq.generated.append(int(t))
+            out[seq.uid] = int(t)
+
+    def _reconcile_pending(self) -> dict:
+        """Read back the oldest pending dispatch's tokens, fold them into
+        host state and release each participant whose last pending
+        reference this was and which has finished."""
+        rec = self._pending.pop(0)
+        t0 = time.perf_counter()
+        host, event = rec["out"]
+        if event is not None:
+            event.synchronize()
+        toks = host.cpu().numpy()
+        self.readback_ns += int((time.perf_counter() - t0) * 1e9)
+        out: dict = {}
+        if rec["kind"] == "step":
+            for row, seq in rec["emit"]:
+                self._append_tokens(seq, [int(toks[row])], out)
+        else:  # chunk: [K, bucket]
+            for j, (seq, k) in enumerate(rec["emits"]):
+                self._append_tokens(seq, toks[:k, j], out)
+        for seq in rec["participants"]:
+            seq.refs -= 1
+            if seq.finished and seq.refs == 0 and seq.slot >= 0:
+                self._release(seq)
+        return out
+
+    def _step_device(self) -> dict:
+        """One device-resident turn: admit, dispatch a run-ahead chunk or a
+        step if anything is schedulable, then reconcile the oldest pending
+        dispatch once the window holds two (or nothing was dispatched), so
+        the readback of dispatch t overlaps the card running t + 1."""
+        self._admit_queued()
+        dispatched = False
+        if self.cfg.decode_run_ahead >= 2:
+            dispatched = self._dispatch_chunk_device()
+        if not dispatched:
+            dispatched = self._dispatch_step_device()
+        if self._pending and (not dispatched or len(self._pending) >= 2):
+            return self._reconcile_pending()
+        if not dispatched and not self._pending and (self._queued or self._running):
+            self._deadlock_guard(0)
+        return {}
+
+    def drain(self) -> dict:
+        """Reconcile every pending dispatch (a flush point for callers that
+        need host-complete state)."""
+        out: dict = {}
+        while self._pending:
+            out.update(self._reconcile_pending())
+        return out
+
     # ------------------------------------------------------------ convenience
     def generate_all(self, max_steps: int = 10_000) -> dict:
-        """Drive ``step()`` until all queued/admitted work finishes; returns
-        {uid: generated token list}."""
+        """Drive ``step()`` until all queued/admitted work finishes and every
+        pending dispatch is reconciled; returns {uid: generated token list}."""
         for _ in range(max_steps):
             if not self.has_work:
                 break
             self.step()
+        self.drain()
         if self.has_work:
             raise RuntimeError(f"work left after {max_steps} steps")
         return {uid: list(seq.generated) for uid, seq in self._results.items()}

@@ -29,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".dstpu_torch_build"
-KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd")
+KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd", "wide_head")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,7 +17,9 @@ are read through 4-D tensor maps (``tma_layout``) and nothing is staged
 transposed. In fp32, and in bf16 at every other head dim, they run
 CUDA-core FMAs (fp32 checks at 1e-4 rule out TF32) compiled for the padded
 head dims 64, 128 and 256: loads zero-fill past the head dim and stores are
-masked to it. ``supports`` says which head dims the kernels take.
+masked to it. Above 256 the wide kernels run (``csrc/wide_head.cu``: one row
+a warp, the head dim streamed in 256-wide chunks). ``supports`` says which
+head dims the kernels take.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it computes the plain version. The plain versions compute the same
@@ -33,7 +35,7 @@ keys instead; the two agree when Sq == Skv, which training always has).
 Layouts: q, o, dO [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] (Hq % Hkv == 0);
 lse [B, Hq, Sq] fp32. The kernels read q, k, v and dO through their strides
 (any batch, sequence and head strides, head dim contiguous), take fp32 or
-bf16 and every head dim the reference's Pallas kernels take up to 256
+bf16 and every head dim the reference's Pallas kernels take up to 1024
 (``supports``), and handle any sequence length.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, each
@@ -51,15 +53,17 @@ from deepspeed_tpu_torch.ops.cuda import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 1024
+WIDE_HEAD_DIM = 256  # above this head dim the wide kernels (csrc/wide_head.cu) run
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the wgmma kernels serve
 
 
 def supports(d: int, dtype) -> bool:
     """Whether the kernels take head dim ``d`` in ``dtype``: fp32 or bf16,
     ``d % 8 == 0`` (the reference's ``_supported``; every row a multiple of
-    16 bytes) and ``8 <= d <= 256``. Above 256 the reference's XLA route
-    runs what no kernel here takes."""
+    16 bytes) and ``8 <= d <= 1024``. The reference takes larger head dims
+    too; here the wide kernels' shared rows (four [8][d] fp32 vectors in
+    dK/dV) bound d at 1024."""
     return dtype in _DTYPES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
@@ -201,6 +205,18 @@ def _fn(lib_name: str, symbol: str, n_ptr: int):
     return fn
 
 
+def wide_fn(symbol: str, n_ptr: int):
+    """An entry point of ``csrc/wide_head.cu``, the kernels of head dims
+    above ``WIDE_HEAD_DIM``: ``n_ptr`` pointers, 7 ints, the scale, dtype,
+    device and stream (the paged entry points set their own argtypes)."""
+    fn = getattr(_build.load("wide_head"), symbol)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * n_ptr + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -223,10 +239,16 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float | None = None
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    rc = _fn("flash_fwd", "dstpu_flash_fwd", 6)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        _strides(q, k, v, o), kernel_layouts(q, k, v), b, sq, skv, hq, hkv, d, int(causal),
-        _scale(q, scale), _DTYPES[q.dtype], dev, _stream(q))
+    if d > WIDE_HEAD_DIM:
+        rc = wide_fn("dstpu_wide_flash_fwd", 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, o), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
+            _DTYPES[q.dtype], dev, _stream(q))
+    else:
+        rc = _fn("flash_fwd", "dstpu_flash_fwd", 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, o), kernel_layouts(q, k, v), b, sq, skv, hq, hkv, d, int(causal),
+            _scale(q, scale), _DTYPES[q.dtype], dev, _stream(q))
     if rc:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {rc}")
     flash_attention_fwd.launches += 1
@@ -259,11 +281,14 @@ def flash_attention_dkdv(q, k, v, do, lse, delta, causal: bool = True,
         return dk, dv
     if q.numel() == 0:
         return dk.zero_(), dv.zero_()
-    rc = _fn("flash_bwd", "dstpu_flash_dkdv", 9)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv),
-        kernel_layouts(q, k, v, do), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
-        _DTYPES[q.dtype], dev, _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv))
+    sizes = (b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
+             _stream(q))
+    if d > WIDE_HEAD_DIM:
+        rc = wide_fn("dstpu_wide_flash_dkdv", 9)(*ptrs, *sizes)
+    else:
+        rc = _fn("flash_bwd", "dstpu_flash_dkdv", 9)(*ptrs, kernel_layouts(q, k, v, do), *sizes)
     if rc:
         raise RuntimeError(f"flash_dkdv kernel launch failed: cudaError_t {rc}")
     flash_attention_dkdv.launches += 1
@@ -282,11 +307,14 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:
         return dq
-    rc = _fn("flash_bwd", "dstpu_flash_dq", 8)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq),
-        kernel_layouts(q, k, v, do), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
-        _DTYPES[q.dtype], dev, _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, dq))
+    sizes = (b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
+             _stream(q))
+    if d > WIDE_HEAD_DIM:
+        rc = wide_fn("dstpu_wide_flash_dq", 8)(*ptrs, *sizes)
+    else:
+        rc = _fn("flash_bwd", "dstpu_flash_dq", 8)(*ptrs, kernel_layouts(q, k, v, do), *sizes)
     if rc:
         raise RuntimeError(f"flash_dq kernel launch failed: cudaError_t {rc}")
     flash_attention_dq.launches += 1

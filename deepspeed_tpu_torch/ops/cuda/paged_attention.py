@@ -13,7 +13,9 @@ tensors it computes the plain version. The plain versions
 through the block table, a position mask and a softmax. They are the CPU
 path and the oracle the kernels are held against on the card.
 
-The kernels take fp32 or bf16 pools and every head dim ``supports`` allows.
+The kernels take fp32 or bf16 pools and every head dim ``supports`` allows;
+above 256 both wrappers launch the wide kernels of ``csrc/wide_head.cu``
+(one query row a warp, the head dim streamed in 256-wide chunks).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and each
 plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
@@ -29,8 +31,9 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import _build
 # the paged kernels take the flash kernels' head dims: d % 8 == 0 (rows of
-# 16 bytes), 8 <= d <= 256, fp32 or bf16
-from deepspeed_tpu_torch.ops.cuda.flash_attention import MAX_HEAD_DIM, supports  # noqa: F401
+# 16 bytes), 8 <= d <= 1024, fp32 or bf16
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (MAX_HEAD_DIM,  # noqa: F401
+                                                          WIDE_HEAD_DIM, supports)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -227,6 +230,19 @@ class DecodeWorkspace:
         return self.part, self.counters
 
 
+def _wide_lib(symbol: str, n_int: int):
+    """A paged entry point of ``csrc/wide_head.cu``: the pools' and
+    metadata's pointers, the table's row stride, the output, ``n_int``
+    sizes, the scale, dtype, device and stream."""
+    fn = getattr(_build.load("wide_head"), symbol)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        n_ptr = 6 if symbol.endswith("decode") else 7
+        fn.argtypes = [p] * n_ptr + [i, p] + [i] * n_int + [ctypes.c_float, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _prefill_lib():
     lib = _build.load("paged_prefill")
     fn = lib.dstpu_paged_prefill
@@ -270,6 +286,17 @@ def paged_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
     out = torch.empty_like(q)
     if t == 0:
         return out
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if d > WIDE_HEAD_DIM:
+        rc = _wide_lib("dstpu_wide_paged_decode", 5)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), slots.data_ptr(),
+            positions.data_ptr(), bt.data_ptr(), bt.stride(0), out.data_ptr(), t, hq, hkv, d,
+            bs, scale, _DTYPES[q.dtype], q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"wide paged_decode kernel launch failed: cudaError_t {rc}")
+        paged_decode_attention.launches += 1
+        return out
     mb = bt.shape[1]
     splits = decode_splits(t, hkv, mb, _sm_count(q.device.index or 0))
     per_split = -(-mb // splits)
@@ -280,7 +307,6 @@ def paged_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
         n_part, n_counters = _decode_sizes(t, hq, hkv, d, splits)
         part = torch.empty(n_part, dtype=torch.float32, device=q.device)
         counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     rc = _decode_lib()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), slots.data_ptr(),
         positions.data_ptr(), bt.data_ptr(), bt.stride(0), out.data_ptr(),
@@ -325,7 +351,9 @@ def ragged_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0,
     if nt == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    rc = _prefill_lib()(
+    launch = (_wide_lib("dstpu_wide_paged_prefill", 6) if d > WIDE_HEAD_DIM
+              else _prefill_lib())
+    rc = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tile_slot.data_ptr(),
         tile_pos0.data_ptr(), tile_valid.data_ptr(), bt.data_ptr(), bt.stride(0),
         out.data_ptr(), nt, hq, hkv, d, bs, tile, scale, _DTYPES[q.dtype],

@@ -25,7 +25,8 @@ STALE = 1 << 30  # a block id no pool has: reading it faults
 # (Hq, Hkv, D, NB, BS, MB): the layout of tests/unit/test_paged_attention.py,
 # a GQA rep=4 case, the tiny engine of tests/test_torch_ragged.py, Llama-3-8B;
 # then GQA rep 1 and 8 and the head dims besides 64 and 128 that the
-# reference's kernels take (16, 80, 96 and the largest, 256)
+# reference's kernels take (16, 80, 96, 256, and above 256 the wide kernels'
+# 264, 384 and 512)
 SHAPES = {
     "unit_layout": (4, 2, 16, 16, 8, 4),
     "gqa4_d128": (8, 2, 128, 64, 32, 8),
@@ -36,6 +37,9 @@ SHAPES = {
     "gqa4_d16": (8, 2, 16, 64, 16, 8),
     "gqa4_d96": (8, 2, 96, 64, 16, 8),
     "gqa4_d256": (8, 2, 256, 64, 16, 8),
+    "gqa4_d264": (8, 2, 264, 64, 16, 8),
+    "rep8_d384": (16, 2, 384, 64, 16, 8),
+    "gqa4_d512": (8, 2, 512, 64, 16, 8),
 }
 # fp32 kernel vs fp32 plain: summation order only; bf16: both round the
 # output to bf16 (one ulp at |x| ~ 1 is 2**-7) from the same bf16 inputs
@@ -266,6 +270,10 @@ FLASH_SHAPES = {
     "mha_d80": (1, 130, 130, 4, 4, 80),
     "short_q_d96": (1, 64, 192, 4, 2, 96),
     "gqa8_d256": (1, 300, 300, 16, 2, 256),
+    # the wide kernels (head dims above 256, streamed in 256-wide chunks)
+    "gqa4_d264": (2, 100, 100, 8, 2, 264),
+    "short_q_d384": (1, 64, 192, 4, 2, 384),
+    "long_q_d512": (1, 130, 70, 8, 2, 512),
 }
 
 
@@ -361,9 +369,9 @@ def test_flash_autograd_matches_eager_attention(cuda):
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
-    """Head dims off the 8-grid or above 256 raise before any launch; 96,
+    """Head dims off the 8-grid or above 1024 raise before any launch; 96,
     which the reference takes, is computed."""
-    for d in (12, 264):
+    for d in (12, 1032):
         q, k, v, do = _flash_case((1, 64, 64, 4, 2, d), torch.float32, cuda)
         with pytest.raises(ValueError, match="head dims"):
             fa.flash_attention_fwd(q, k, v)
@@ -400,3 +408,110 @@ def test_tiny_llama_trains_on_the_kernels(cuda):
     assert fa.flash_attention_fwd.launches > 0 and fa.flash_attention_dq.launches > 0
     assert fa.flash_attention_fwd_ref.calls == fa.flash_attention_bwd_ref.calls == 0
     assert losses[-1] < losses[0], losses
+
+
+# ------------------------------------------- the engine's CUDA graphs
+# the tiny engine of tests/test_torch_ragged.py (block size 4: tables grow
+# every 4 tokens, so replays meet rows synced since their capture)
+ENGINE_CFG = dict(vocab_size=97, hidden_size=32, intermediate_size=64, num_layers=2,
+                  num_heads=4, num_kv_heads=2, max_seq_len=128)
+ENGINE_RCFG = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=49,
+                   max_blocks_per_seq=16)
+GRAPH_MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4}}
+
+
+def _graph_engine(mode, dtype, graphs: bool):
+    """A device-resident engine on the card; ``graphs=False`` runs every
+    program eagerly (its program cache treated as off the card)."""
+    from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
+                                RaggedConfig(**ENGINE_RCFG, **GRAPH_MODES[mode]),
+                                dtype=dtype, seed=0)
+    if not graphs:
+        eng.programs.on_card = False
+    return eng
+
+
+def _graph_run(mode, dtype, graphs: bool, max_new=24):
+    """Tokens, KV pool, launch counts and engine of 7 requests (more than
+    the slots) through ``_graph_engine``."""
+    eng = _graph_engine(mode, dtype, graphs)
+    rng = np.random.default_rng(11)
+    pa.reset_counts()
+    for i, n in enumerate((3, 4, 5, 8, 9, 13, 17)):
+        eng.put(f"r{i}", rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist(),
+                max_new_tokens=max_new)
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    launches = (pa.paged_decode_attention.launches, pa.ragged_prefill_attention.launches)
+    return out, eng.cache, launches, eng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graphs_replay_bit_identical_to_eager(cuda, mode, dtype):
+    """The captured steps (and, with run-ahead, chunks) replay bit for bit
+    what the same programs compute eagerly on the same inputs: the same
+    tokens and the same KV pool."""
+    out_g, cache_g, _, eng = _graph_run(mode, dtype, graphs=True)
+    out_e, cache_e, _, ref = _graph_run(mode, dtype, graphs=False)
+    assert eng.programs.replays > 0 and ref.programs.replays == 0
+    kinds = {key[0] for key in eng.programs._graphs}
+    assert kinds == ({"step", "chunk"} if mode == "run_ahead" else {"step"})
+    assert out_g == out_e
+    assert torch.equal(cache_g["k"], cache_e["k"]) and torch.equal(cache_g["v"], cache_e["v"])
+    assert eng.allocator.free_blocks == ENGINE_RCFG["num_blocks"] - 1
+
+
+def test_replay_after_dirty_row_sync_sees_new_table(cuda):
+    """Rows delta-uploaded into the device table after a graph was captured
+    are read by its later replays: the engine syncs rows into the one
+    tensor the graphs captured, and the tokens stay the eager run's."""
+    eng = _graph_engine("plain", torch.float32, graphs=True)
+    table = eng._bt_dev
+    sync = eng._sync_bt
+    replays_after_sync = []
+
+    def spy():
+        dirty = sync()
+        if dirty and eng.programs.graphs:
+            replays_after_sync.append(eng.programs.replays)
+        return dirty
+
+    eng._sync_bt = spy
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, ENGINE_CFG["vocab_size"], 5).tolist()
+    eng.put("a", prompt, max_new_tokens=40)
+    out = eng.generate_all()
+    ref = _graph_engine("plain", torch.float32, graphs=False)
+    ref.put("a", prompt, max_new_tokens=40)
+    assert out == ref.generate_all()
+    assert eng._bt_dev is table
+    # the table grew (a dirty row) after capture, and graphs replayed after that
+    assert replays_after_sync and eng.programs.replays > replays_after_sync[0]
+
+
+def test_readback_after_next_dispatch_is_the_dispatchs_own(cuda):
+    """With one request decoding alone every decode step replays one graph,
+    whose static output the next replay overwrites before the previous
+    step is reconciled: the tokens read back must still be each step's own
+    (those of the eager run)."""
+    out_g, _, _, eng = _graph_run("plain", torch.float32, graphs=True, max_new=40)
+    out_e, _, _, _ = _graph_run("plain", torch.float32, graphs=False, max_new=40)
+    assert eng.programs.replays >= 10
+    assert out_g == out_e
+    # consecutive tokens differ somewhere (a stale buffer would repeat them)
+    assert any(len(set(v)) > 1 for v in out_g.values())
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_launch_counters_advance_per_replay(cuda, mode):
+    """A graph's kernel launches are counted at every replay (not once, at
+    capture): the counters read what the eager run counts."""
+    _, _, launches_g, eng = _graph_run(mode, torch.float32, graphs=True)
+    _, _, launches_e, _ = _graph_run(mode, torch.float32, graphs=False)
+    assert eng.programs.replays > 0
+    assert launches_g == launches_e
+    assert pa.paged_decode_attention_ref.calls == pa.ragged_prefill_attention_ref.calls == 0

@@ -173,7 +173,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fa.flash_attention_fwd(tq, tk, tv)
     with pytest.raises(ValueError, match="head dims"):
         fa._check(tq, tk, tv)
-    tq, tk, tv = (torch.empty(1, 8, 2, 264, device="meta") for _ in range(3))
+    tq, tk, tv = (torch.empty(1, 8, 2, 1032, device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="head dims"):
         fa._check(tq, tk, tv)
     q, k, v, _ = _inputs(d=64)
@@ -226,11 +226,11 @@ def test_kernel_layouts_give_the_bf16_kernels_one_map_per_tensor():
 @pytest.mark.parametrize("module", [fa, pa], ids=["flash", "paged"])
 def test_supports_takes_the_reference_head_dims(module):
     """The kernels take what the reference's Pallas kernels take (``d % 8 ==
-    0``) from 8 up to 256, in fp32 and bf16; above 256, or off the 8-grid,
-    they refuse."""
+    0``) from 8 up to 1024 (above 256 on the wide kernels), in fp32 and
+    bf16; above 1024, or off the 8-grid, they refuse."""
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (8, 16, 80, 96, 256):
+        for d in (8, 16, 80, 96, 256, 264, 384, 512, 1024):
             assert module.supports(d, dtype), (d, dtype)
-        for d in (12, 264):
+        for d in (12, 1032):
             assert not module.supports(d, dtype), (d, dtype)
     assert not module.supports(64, torch.float16)

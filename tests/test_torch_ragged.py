@@ -3,71 +3,62 @@
 on the CPU, greedy tokens identical; plus the engine's own contracts
 (leak-free pool, cancel, deadlines, request validation, device choice).
 
-Sizes are those of tests/unit/test_ragged.py: vocab 97, hidden 32, 4 heads,
-2 KV heads, budget 16, 3 slots, 4-token blocks.
+Sizes, weights, requests and the JAX runs are tests/torch_ragged_common.py's
+(the sizes of tests/unit/test_ragged.py).
 """
 
 import dataclasses
 import time
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
+import torch_ragged_common as common
+from torch_ragged_common import CFG, MAX_NEW, RCFG
 
-from deepspeed_tpu.inference import ragged as jax_ragged
-from deepspeed_tpu.models import llama as jax_llama
 from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 
-CFG = dict(vocab_size=97, hidden_size=32, intermediate_size=64, num_layers=2,
-           num_heads=4, num_kv_heads=2, max_seq_len=128)
-RCFG = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=49,
-            max_blocks_per_seq=16)
-# prompt lengths on both sides of block edges, more requests than slots
-PROMPT_LENS = (3, 4, 5, 8, 9, 13, 17)
-MAX_NEW = 7
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's side: under pytest-xdist every
+    worker would otherwise start as many as the host has cores, and the
+    engines' many small ops spend most of their time contending for them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
 def np_params():
-    p = jax_llama.init_params(jax_llama.LlamaConfig(**CFG), jax.random.PRNGKey(3))
-    # copies, not views: a numpy view keeps its JAX buffer in jax.live_arrays()
-    return jax.tree_util.tree_map(np.array, p)
+    return common.np_params()
 
 
 def _requests():
-    rng = np.random.default_rng(11)
-    return {f"r{i}": rng.integers(0, CFG["vocab_size"], n).tolist()
-            for i, n in enumerate(PROMPT_LENS)}
+    return common.requests()
 
 
 def _port_engine(np_params, **over):
+    """The port's host-staged engine (the JAX side's ``device_state=False``)."""
     return RaggedInferenceEngine(
-        llama.build(llama.LlamaConfig(**CFG)), RaggedConfig(**{**RCFG, **over}),
+        llama.build(llama.LlamaConfig(**CFG)),
+        RaggedConfig(**{**RCFG, "device_state": False, **over}),
         dtype=torch.float32, params=params_from_numpy(np_params), device="cpu")
 
 
 @pytest.mark.parametrize("prefill_tile", [0, 4], ids=["plain", "tiled"])
 def test_greedy_tokens_identical_to_jax(np_params, prefill_tile):
-    jcfg = jax_llama.LlamaConfig(**CFG)
-    jeng = jax_ragged.RaggedInferenceEngine(
-        lambda ctx: jax_llama.build(jcfg, ctx=ctx),
-        jax_ragged.RaggedConfig(**RCFG, prefill_tile=prefill_tile, device_state=False),
-        dtype=jnp.float32, params=jax.tree_util.tree_map(jnp.asarray, np_params))
+    want, *schedule, _ = common.jax_reference(prefill_tile=prefill_tile, device_state=False)
     peng = _port_engine(np_params, prefill_tile=prefill_tile)
-    for eng in (jeng, peng):
-        for uid, prompt in _requests().items():
-            eng.put(uid, prompt, max_new_tokens=MAX_NEW)
-    want = jeng.generate_all()
+    for uid, prompt in _requests().items():
+        peng.put(uid, prompt, max_new_tokens=MAX_NEW)
     got = peng.generate_all()
     assert got == want
     assert all(len(v) == MAX_NEW for v in got.values())
     # same schedule: same dispatches, same padding
-    assert (peng.dispatch_count, peng.tokens_scheduled, peng.tokens_padded) == \
-        (jeng.dispatch_count, jeng.tokens_scheduled, jeng.tokens_padded)
+    assert [peng.dispatch_count, peng.tokens_scheduled, peng.tokens_padded] == schedule
     # leak-free pool: only scratch block 0 is not free
     assert peng.allocator.free_blocks == RCFG["num_blocks"] - 1
     assert peng._reserved == 0 and not peng.block_tables.any()

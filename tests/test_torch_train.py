@@ -44,6 +44,17 @@ JCFG = jax_llama.LlamaConfig.tiny()
 B, S = 2, 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's side: under pytest-xdist every
+    worker would otherwise start as many as the host has cores, and the
+    engines' many small ops spend most of their time contending for them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def np_params():
     p = jax_llama.init_params(JCFG, jax.random.PRNGKey(0))
