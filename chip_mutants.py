@@ -34,13 +34,17 @@ Training mutants (``flash_fwd.cu``, ``flash_bwd.cu``; the ``_mma_`` and
   the gradients, limit 1e-3; 4-step trajectory abs error, limit 1e-3) and
   bf16 at 4 layers (gradients, limit 5e-2).
 
-Device-path mutants (``inference/ragged.py``, the device-resident engine;
-the edited module is loaded under a name of its own, the package's is not
-touched):
+Device-path mutants (``inference/ragged.py``, the device-resident engine
+and the fused chunks; the edited module is loaded under a name of its own,
+the package's is not touched):
 - ``parity_device_fp32``: chip_smoke.py's parity_device readings: whether
   greedy tokens of the device-resident engine, without and with run-ahead
-  48, equal the host-staged engine's (8 requests x 48 tokens, 2 layers at
-  full width, fp32), and how many graphs each replayed.
+  48, and of the fused engine on the device and host-staged paths, equal
+  the host-staged engine's (8 requests x 48 tokens, 2 layers at full width,
+  fp32), and how many graphs each replayed;
+- ``fused_program_fp32``: chip_smoke.py's fused program check on a fused
+  engine of that 2-layer fp32 model: replay vs eager bit-identical, and KV
+  rows written outside the rows and steps the program schedules (limit 0).
 
 Run from the repository root:
 
@@ -139,6 +143,21 @@ PY_MUTANTS = {
     "pos_row_not_advanced": ("deepspeed_tpu_torch.inference.ragged",
                              "            pos_st.index_add_(0, sl, torch.where(real, k, 0)"
                              ".to(torch.int32))\n", ""),
+    # a fused chunk's decode rows feed the staged host token (0: the host
+    # does not have the previous chunk's picks yet), not their slot row's
+    "fused_feed_ignores_device_token": ("deepspeed_tpu_torch.inference.ragged",
+                                        "torch.where(feed, tok_st[sl], staged[0:t])",
+                                        "staged[0:t]"),
+    # a frozen or retired row of a fused scan keeps its real slot (at
+    # position 0): it writes KV into its own sequence's first block
+    "fused_frozen_row_writes_state": ("deepspeed_tpu_torch.inference.ragged",
+                                      "s = torch.where(active, dec_slots, max_seqs)",
+                                      "s = dec_slots"),
+    # no copy of a fused chunk's output behind its dispatch: with three
+    # chunks in flight a later replay of the same graph has overwritten it
+    # by the time the chunk is reconciled
+    "fused_output_not_copied": ("deepspeed_tpu_torch.inference.ragged",
+                                '"out": self._readback(packed)', '"out": (packed, None)'),
 }
 # the kernels each source is compiled into
 BUILT_FROM = {"paged_decode.cu": ("paged_decode",),
@@ -312,12 +331,25 @@ def main() -> int:
                 "bf16": {"max_rel_frobenius_err": parity["bf16"]["max_rel_frobenius_err"]}}
         # the device path: correct engine, then each Python mutant
         use(_build, libs["correct"])
+        cfg2 = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
         for tag in ["correct", *PY_MUTANTS]:
             mod = ragged if tag == "correct" else mutant_module(tag)
             res = smoke.parity_device(torch, np, llama, mod)
-            rows.setdefault(tag, {"variant": tag})["parity_device_fp32"] = {
+            row = rows.setdefault(tag, {"variant": tag})
+            row["parity_device_fp32"] = {
                 k: res[k] for k in ("device_tokens_identical", "run_ahead_tokens_identical",
-                                    "graph_replays")}
+                                    "fused_device_tokens_identical",
+                                    "fused_host_staged_tokens_identical", "graph_replays")}
+            eng = mod.RaggedInferenceEngine(llama.build(cfg2),
+                                            mod.RaggedConfig(**smoke.ENGINE, **smoke.FUSED),
+                                            dtype=torch.float32, seed=1)
+            res = smoke.fused_program_check(torch, np, eng)
+            row["fused_program_fp32"] = {
+                k: res[k] for k in ("bit_identical", "kv_rows_written_outside_schedule",
+                                    "kv_rows_missing",
+                                    "frozen_and_retired_rows_surface_minus_one")}
+            del eng
+            torch.cuda.empty_cache()
         for row in rows.values():
             print(json.dumps(row), flush=True)
     finally:

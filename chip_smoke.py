@@ -18,9 +18,11 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    backward kernels' ``kernel_time`` lines add an estimate, not a
    measurement, of their part of SDPA's one backward call: its time times
    their share of the pair's flops); then ``head_dims``: all five kernels
-   against their plain versions at head dims 16, 80, 96, 256, 264, 384
-   and 512 in fp32 and bf16, and a few training steps of ``LlamaConfig.tiny()`` (head dim
-   16) through the flash kernels;
+   against their plain versions at head dims 16, 80, 96, 256, 264, 384,
+   512, 1032 and 2048 in fp32 and bf16 (above 1024 the wide kernels' rows
+   in a global workspace; at 2048 also timed, for information), and a few
+   training steps of ``LlamaConfig.tiny()`` (head dim 16) through the flash
+   kernels;
 4. engine: 32 requests x 48 greedy tokens through ``put()`` and
    ``generate_all()`` on the host-staged path (``device_state=False``), run
    twice on one engine, the second run reported, with the kernels' launch
@@ -36,9 +38,19 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    (graph replays, eager dispatches, H2D bytes in all and in steady decode,
    launches counted per replay), then a profiled run;
 5b. parity_device: greedy tokens of the device-resident engine, with and
-   without run-ahead, against the host-staged engine (fp32, 2 layers at
+   without run-ahead, and of the fused engine on the device path and on
+   the host-staged path, against the host-staged engine (fp32, 2 layers at
    full width), and one captured decode-step graph of the 32-layer bf16
    model against ``llama.ragged_forward`` called eagerly;
+5c. engine_fused: the same workload on the reference bench's own serving
+   configuration (``bench.py:serve_trial_main``): fused mixed chunks of 16
+   with three in flight, after ``warmup()`` captured the fused program
+   family; warm-up run, measured run (every dispatch a graph replay, both
+   kernels launched inside replays, the JAX engine's schedule), then a
+   profiled run; then one mixed fused program (prefill tiles and a decode
+   scan, 32 layers, bf16) captured and replayed against the same program
+   run eagerly from the same state, and the KV it writes held to the rows
+   and steps it schedules;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -564,8 +576,9 @@ def flash_kernel_phase(torch, fa):
 
 # --------------------------------------------------------------- head dims
 # taken by the reference's kernels, besides 64 and 128; above 256 the wide
-# kernels (csrc/wide_head.cu)
-HEAD_DIMS = (16, 80, 96, 256, 264, 384, 512)
+# kernels (csrc/wide_head.cu), above 1024 with their rows in a global workspace
+HEAD_DIMS = (16, 80, 96, 256, 264, 384, 512, 1032, 2048)
+HEAD_DIM_TIMED = 2048  # timed too, for information: no model has such a head dim
 HEAD_DIM_FLASH = (1, 1000, 8, 2)  # (B, S, Hq, Hkv): GQA rep 4, S off the 128-row tile
 
 
@@ -600,6 +613,26 @@ def head_dim_checks(torch, np, pa, fa, d: int, dtype) -> dict:
     return out
 
 
+def head_dim_times(torch, np, pa, fa, d: int) -> dict:
+    """Device ms (bf16, mean of 5 launches after an L2 flush) of the five
+    kernels at head dim d, on the head-dim checks' inputs."""
+    flush = L2Flush(torch)
+    dec = decode_case(torch, np, torch.bfloat16, d)
+    pre, ct = prefill_case(torch, np, torch.bfloat16, d)
+    q, k, v, do = flash_inputs(torch, torch.bfloat16, shape=(*HEAD_DIM_FLASH, d))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    calls = {"paged_decode": lambda: pa.paged_decode_attention(*dec),
+             "paged_prefill": lambda: pa.ragged_prefill_attention(*pre, ct),
+             "flash_fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
+             "flash_dkdv": lambda: fa.flash_attention_dkdv(q, k, v, do, lse, delta, True),
+             "flash_dq": lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, True)}
+    out = {name: cuda_ms(torch, fn, flush, iters=5, warmup=1) for name, fn in calls.items()}
+    del dec, pre, q, k, v, do, o, lse, delta, flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def head_dims_phase(torch, np, pa, fa, llama, engine_mod) -> None:
     """Every head dim the reference's kernels take runs on a hand-written
     kernel: the five kernels at HEAD_DIMS in fp32 and bf16, then
@@ -614,6 +647,9 @@ def head_dims_phase(torch, np, pa, fa, llama, engine_mod) -> None:
             emit("head_dim_check", head_dim=d, dtype=dname, decode_tol=TOL[dname],
                  flash_shape=[*HEAD_DIM_FLASH, d], kernels=res)
             failed += [f"{name} d={d} {dname}" for name, r in res.items() if not r["ok"]]
+    emit("head_dim_time", head_dim=HEAD_DIM_TIMED, dtype="bfloat16", decode_shape="decode_case",
+         prefill_shape="prefill_case", flash_shape=[*HEAD_DIM_FLASH, HEAD_DIM_TIMED],
+         ms=head_dim_times(torch, np, pa, fa, HEAD_DIM_TIMED))
 
     cfg = llama.LlamaConfig.tiny()
     fa.reset_counts()
@@ -860,11 +896,22 @@ def parity_fp32_phase(torch, np, llama, ragged):
 
 # ------------------------------------------------------- device-resident
 RUN_AHEAD = 48  # bench.py:289,324's decode_run_ahead
+# bench.py:289-290,318-336: fused chunks of 16, three in flight
+FUSED_CHUNK, PIPELINE_DEPTH = 16, 3
+FUSED = dict(device_state=True, decode_run_ahead=RUN_AHEAD, fused_chunk=FUSED_CHUNK,
+             pipeline_depth=PIPELINE_DEPTH)
+# the JAX engine's schedule of the 32 x 48 workload at ENGINE + FUSED:
+# (dispatches, scheduled tokens, padded tokens), and its warmup family's
+# size; tests/test_torch_ragged_fused.py holds both engines to them
+FUSED_SCHEDULE = (12, 9216, 4608)
+FUSED_WARMUP_PROGRAMS = 29
 
 
 def engine_counters(eng) -> dict:
     p = eng.programs
-    return dict(steps=eng.dispatch_count, graph_replays=p.replays,
+    return dict(steps=eng.dispatch_count, forwards=eng.forwards,
+                scheduled_tokens=eng.tokens_scheduled, padded_tokens=eng.tokens_padded,
+                graph_replays=p.replays,
                 decode_launches_in_replays=p.replayed[0],
                 prefill_launches_in_replays=p.replayed[1],
                 eager_dispatches=p.eager_runs, graph_captures=p.captures,
@@ -877,26 +924,20 @@ def engine_counters(eng) -> dict:
                 steady_h2d_bytes=eng.steady_h2d_bytes)
 
 
-def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
-    """The serving workload on the reference's default path: device-resident
-    state, decode run-ahead 48, decode-only programs replayed as CUDA graphs.
-    A warm-up run (it captures the graphs), then the measured run with every
-    count zeroed just before it, then a profiled run. Returns the measured
-    run's kernel launches and the engine (parity_device reads its model)."""
-    cfg = llama.LlamaConfig.llama3_8b()
-    rcfg = ragged.RaggedConfig(**ENGINE, device_state=True, decode_run_ahead=RUN_AHEAD)
-    t0 = time.perf_counter()
-    eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = requests(np, cfg.vocab_size)
+def warm_run(torch, eng, prompts, phase: str) -> float:
+    """The warm-up run of a serving phase; its wall seconds."""
     t0 = time.perf_counter()
     out = run(eng, prompts, MAX_NEW)
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     if any(len(v) != MAX_NEW for v in out.values()):
-        raise AssertionError("device warm-up run: a request did not return 48 tokens")
+        raise AssertionError(f"{phase} warm-up run: a request did not return 48 tokens")
+    return time.perf_counter() - t0
 
+
+def measured_run(torch, pa, eng, prompts):
+    """A serving phase's measured run, with every count zeroed just before
+    it and read just after: (tokens by request, wall seconds, kernel
+    launches, plain-version calls, the engine counters' change, power)."""
     before = engine_counters(eng)
     torch.cuda.reset_peak_memory_stats()
     pa.reset_counts()
@@ -913,13 +954,48 @@ def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
     plain_calls = (pa.paged_decode_attention_ref.calls
                    + pa.ragged_prefill_attention_ref.calls)
     d = {k: v - before[k] for k, v in engine_counters(eng).items()}
+    return out, wall, launches, plain_calls, d, power
+
+
+def serving_gates(phase: str, out: dict, vocab: int, eng, launches: dict,
+                  plain_calls: int) -> None:
+    """What every device-path serving run must show: 32 requests of 48
+    tokens in the vocabulary, both kernels launched, no plain attention and
+    no leaked block."""
+    if len(out) != N_REQ or any(len(v) != MAX_NEW for v in out.values()):
+        raise AssertionError(f"{phase}: a request did not return 48 tokens")
+    if any(not 0 <= t < vocab for v in out.values() for t in v):
+        raise AssertionError(f"{phase}: a token outside the vocabulary")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{phase}: a kernel of the path was never launched: {launches}")
+    if plain_calls:
+        raise AssertionError(f"{phase}: plain attention ran {plain_calls} times")
+    if eng.allocator.free_blocks != eng.cfg.num_blocks - 1:
+        raise AssertionError(f"{phase}: KV blocks leaked")
+
+
+def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
+    """The serving workload on the reference's default path: device-resident
+    state, decode run-ahead 48, decode-only programs replayed as CUDA graphs.
+    A warm-up run (it captures the graphs), then the measured run with every
+    count zeroed just before it, then a profiled run. Returns the measured
+    run's kernel launches and the engine (parity_device reads its model)."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    rcfg = ragged.RaggedConfig(**ENGINE, device_state=True, decode_run_ahead=RUN_AHEAD)
+    t0 = time.perf_counter()
+    eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = requests(np, cfg.vocab_size)
+    warm_s = warm_run(torch, eng, prompts, "engine_device")
+    out, wall, launches, plain_calls, d, power = measured_run(torch, pa, eng, prompts)
     gen = sum(len(v) for v in out.values())
     # every request's first token comes from its prompt-completing step
     decode_tokens = gen - len(out)
     emit("engine_device", path=f"device-resident, run-ahead {RUN_AHEAD}, CUDA graphs",
          requests=len(out), new_tokens_each=MAX_NEW, generated_tokens=gen, wall_s=wall,
          generated_tokens_per_s=gen / wall, warmup_wall_s=warm_s, init_s=init_s,
-         steps=d["steps"], graph_replays=d["graph_replays"],
+         steps=d["steps"], forwards=d["forwards"], graph_replays=d["graph_replays"],
          eager_dispatches=d["eager_dispatches"], graph_captures=d["graph_captures"],
          kernel_launches_in_replays={"paged_decode": d["decode_launches_in_replays"],
                                      "paged_prefill": d["prefill_launches_in_replays"]},
@@ -936,17 +1012,7 @@ def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
          host_staged_max_memory_allocated_bytes=host_run["max_memory_allocated_bytes"],
          host_staged_generated_tokens_per_s=host_run["generated_tokens_per_s"],
          nvidia_smi=nvidia_smi("name", "power.limit"), **power)
-    if len(out) != N_REQ or any(len(v) != MAX_NEW for v in out.values()):
-        raise AssertionError("engine_device: a request did not return 48 tokens")
-    if any(not 0 <= t < cfg.vocab_size for v in out.values() for t in v):
-        raise AssertionError("engine_device: a token outside the vocabulary")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"engine_device: a kernel of the path was never launched: "
-                             f"{launches}")
-    if plain_calls:
-        raise AssertionError(f"engine_device: plain attention ran {plain_calls} times")
-    if eng.allocator.free_blocks != rcfg.num_blocks - 1:
-        raise AssertionError("engine_device: KV blocks leaked")
+    serving_gates("engine_device", out, cfg.vocab_size, eng, launches, plain_calls)
     # steady decode: decode-only dispatches over the previous one's batch
     # stage nothing, and those with no dirty table row upload nothing at all
     if (d["steady_clean_dispatches"] <= 0 or d["steady_stage_bytes"]
@@ -958,7 +1024,7 @@ def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
     if d["graph_replays"] <= 0:
         raise AssertionError("engine_device: no CUDA graph was replayed")
     profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_device")
-    return launches, eng
+    return launches, eng, dict(generated_tokens_per_s=gen / wall, forwards=d["forwards"])
 
 
 def graph_vs_eager(torch, np, llama, eng) -> dict:
@@ -1005,9 +1071,11 @@ def graph_vs_eager(torch, np, llama, eng) -> dict:
 def parity_device(torch, np, llama, ragged) -> dict:
     """2 of Llama-3-8B's 32 layers at full width, fp32: greedy tokens of 8
     requests x 48 new tokens through the device-resident engine, without
-    and with run-ahead 48, against the host-staged engine. Each engine
-    serves the requests twice: the first run captures each decode-only
-    program at its first dispatch, the second replays them all."""
+    and with run-ahead 48, and through the fused engine (``FUSED``) on the
+    device path and on the host-staged path, against the host-staged
+    engine. Each engine serves the requests twice: the first run captures
+    each program of the device path at its first dispatch (without fused
+    chunks: each decode-only program), the second replays them all."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                                torch.float32, "cuda")
@@ -1018,7 +1086,9 @@ def parity_device(torch, np, llama, ragged) -> dict:
     for name, over in (("host_staged", dict(device_state=False)),
                        ("device", dict(device_state=True)),
                        ("device_run_ahead", dict(device_state=True,
-                                                 decode_run_ahead=RUN_AHEAD))):
+                                                 decode_run_ahead=RUN_AHEAD)),
+                       ("fused_device", FUSED),
+                       ("fused_host_staged", dict(FUSED, device_state=False))):
         eng = ragged.RaggedInferenceEngine(llama.build(cfg), ragged.RaggedConfig(**ENGINE, **over),
                                            dtype=torch.float32, params=params)
         toks[name] = [run(eng, prompts, MAX_NEW) for _ in range(2)]
@@ -1030,7 +1100,10 @@ def parity_device(torch, np, llama, ragged) -> dict:
     return dict(requests=len(prompts), new_tokens_each=MAX_NEW, runs=2, graph_replays=replays,
                 host_staged_runs_identical=toks["host_staged"][1] == want,
                 device_tokens_identical=all(t == want for t in toks["device"]),
-                run_ahead_tokens_identical=all(t == want for t in toks["device_run_ahead"]))
+                run_ahead_tokens_identical=all(t == want for t in toks["device_run_ahead"]),
+                fused_device_tokens_identical=all(t == want for t in toks["fused_device"]),
+                fused_host_staged_tokens_identical=all(
+                    t == want for t in toks["fused_host_staged"]))
 
 
 GRAPH_REL_FRO = 1e-3
@@ -1043,14 +1116,202 @@ def parity_device_phase(torch, np, llama, ragged, eng) -> None:
     g = graph_vs_eager(torch, np, llama, eng)
     emit("parity_device_graph_bf16", model="llama3_8b", **g, rel_frobenius_bound=GRAPH_REL_FRO)
     if not (res["device_tokens_identical"] and res["run_ahead_tokens_identical"]
-            and res["host_staged_runs_identical"]):
+            and res["host_staged_runs_identical"] and res["fused_device_tokens_identical"]
+            and res["fused_host_staged_tokens_identical"]):
         raise AssertionError(f"parity_device: fp32 greedy tokens differ from the host-staged "
                              f"engine's: {res}")
-    if min(res["graph_replays"]["device"], res["graph_replays"]["device_run_ahead"]) <= 0:
+    if min(res["graph_replays"][name] for name in ("device", "device_run_ahead",
+                                                   "fused_device")) <= 0:
         raise AssertionError(f"parity_device: a device engine replayed no graph: {res}")
     if not (g["rel_frobenius_err"] <= GRAPH_REL_FRO and g["top1_identical"]):
         raise AssertionError(f"parity_device: the replayed graph's logits are outside "
                              f"{GRAPH_REL_FRO} or its top-1 differs: {g}")
+
+
+# ------------------------------------------------------------ fused chunks
+def engine_fused_phase(torch, np, llama, ragged, pa, device_run: dict):
+    """The serving workload on the reference bench's own configuration:
+    ENGINE with run-ahead 48, fused chunks of 16 and three in flight. After
+    ``warmup()`` (which captures the fused program family) a warm-up run,
+    the measured run with every count zeroed just before it, then a
+    profiled run. Returns the measured run's launches (in all, and inside
+    graph replays) and the engine (the fused program check reads its
+    model)."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    rcfg = ragged.RaggedConfig(**ENGINE, **FUSED)
+    t0 = time.perf_counter()
+    eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    programs = eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    warm = dict(warmup_programs=programs, warmup_s=warmup_s, warmup_graphs=eng.programs.graphs,
+                warmup_captures=eng.programs.captures,
+                warmup_peak_bytes_above_engine=torch.cuda.max_memory_allocated() - mem0,
+                graph_pool_reserved_bytes=torch.cuda.memory_reserved() - reserved0)
+    prompts = requests(np, cfg.vocab_size)
+    warm_s = warm_run(torch, eng, prompts, "engine_fused")
+    out, wall, launches, plain_calls, d, power = measured_run(torch, pa, eng, prompts)
+    in_replays = {"paged_decode": d["decode_launches_in_replays"],
+                  "paged_prefill": d["prefill_launches_in_replays"]}
+    schedule = (d["steps"], d["scheduled_tokens"], d["padded_tokens"])
+    gen = sum(len(v) for v in out.values())
+    emit("engine_fused", path=f"device-resident, fused chunks of {FUSED_CHUNK}, "
+                              f"pipeline depth {PIPELINE_DEPTH}, CUDA graphs",
+         requests=len(out), new_tokens_each=MAX_NEW, generated_tokens=gen, wall_s=wall,
+         generated_tokens_per_s=gen / wall, warmup_wall_s=warm_s, init_s=init_s, **warm,
+         pipeline_depth=PIPELINE_DEPTH, fused_chunk=FUSED_CHUNK,
+         steps=d["steps"], forwards=d["forwards"], scheduled_tokens=d["scheduled_tokens"],
+         padded_tokens=d["padded_tokens"], jax_schedule=list(FUSED_SCHEDULE),
+         graph_replays=d["graph_replays"], eager_dispatches=d["eager_dispatches"],
+         graph_captures=d["graph_captures"], kernel_launches_in_replays=in_replays,
+         graphs=eng.programs.graphs, host_stage_s=d["host_stage_ns"] / 1e9,
+         readback_s=d["readback_ns"] / 1e9, h2d_bytes=d["h2d_bytes"],
+         steady_dispatches=d["steady_dispatches"], steady_stage_bytes=d["steady_stage_bytes"],
+         steady_clean_dispatches=d["steady_clean_dispatches"],
+         steady_h2d_bytes=d["steady_h2d_bytes"], kernel_launches=launches,
+         plain_version_calls=plain_calls, free_blocks=eng.allocator.free_blocks,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         device_path_generated_tokens_per_s=device_run["generated_tokens_per_s"],
+         device_path_forwards=device_run["forwards"],
+         nvidia_smi=nvidia_smi("name", "power.limit"), **power)
+    serving_gates("engine_fused", out, cfg.vocab_size, eng, launches, plain_calls)
+    if programs != FUSED_WARMUP_PROGRAMS:
+        raise AssertionError(f"engine_fused: warmup() prepared {programs} programs, the JAX "
+                             f"engine's family has {FUSED_WARMUP_PROGRAMS}")
+    if d["graph_captures"] or d["eager_dispatches"] or d["graph_replays"] != d["steps"]:
+        raise AssertionError(f"engine_fused: after warmup() the measured run captured "
+                             f"{d['graph_captures']} and ran {d['eager_dispatches']} programs "
+                             f"eagerly ({d['graph_replays']} replays of {d['steps']} dispatches)")
+    if min(in_replays.values()) <= 0:
+        raise AssertionError(f"engine_fused: a kernel never launched inside a replay: "
+                             f"{in_replays}")
+    if schedule != FUSED_SCHEDULE:
+        raise AssertionError(f"engine_fused: (dispatches, scheduled, padded) {schedule}, the "
+                             f"JAX engine's {FUSED_SCHEDULE}")
+    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_fused")
+    return launches, in_replays, eng
+
+
+def fused_program_check(torch, np, eng) -> dict:
+    """One mixed fused program of ``eng`` (a fused engine at ENGINE's
+    sizes, idle): a decode region of 32 rows (20 live: 10 run all 16 steps,
+    5 only 1..15 and freeze, 5 are already at their EOS, ``done0``) and two
+    prefill tiles of one 200-token chunk,
+    over a pool of random values. The program runs eagerly, then is captured
+    in a ``ProgramCache`` and replayed, each from the same state: what a
+    correct program fixes must be bit-identical: the live rows' tokens (the
+    20 decode columns, the prefill rows' step-0 picks), the KV pool past
+    scratch block 0 and every slot row but the scratch row. (Rows on the
+    scratch slot, padding, ``done0`` and frozen rows, all write key 0 of
+    block 0 at once and read it back, so their own picks differ from run to
+    run by design and are discarded.) And the KV it wrote must be exactly
+    that of the rows and steps it schedules (a frozen or retired row writes
+    only scratch block 0)."""
+    from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
+
+    rng = np.random.default_rng(7)
+    rcfg = eng.cfg
+    max_seqs, bs, mb, ct = rcfg.max_seqs, rcfg.block_size, rcfg.max_blocks_per_seq, \
+        rcfg.prefill_tile
+    k, nd, nt = FUSED_CHUNK, max_seqs, 2
+    t = nd + nt * ct
+    vocab = eng.spec.config.vocab_size
+    # slots 0..19 decode, slot 20 prefills positions 100..299
+    bt = np.zeros((max_seqs + 1, mb), np.int32)
+    bt[:21] = rng.permutation(np.arange(1, rcfg.num_blocks))[:21 * mb].reshape(21, mb)
+    pos0 = rng.integers(0, mb * bs - k, 20)
+    feed = rng.integers(0, vocab, 20)
+    kind = np.arange(20) % 4  # 1: freezes after 1..15 steps; 2: done0 (no step)
+    steps = np.where(kind == 1, rng.integers(1, k, 20), np.where(kind == 2, 0, k))
+    tokens = np.zeros(t, np.int32)
+    slots = np.full(t, max_seqs, np.int32)
+    positions = np.zeros(t, np.int32)
+    flags = np.zeros(t, np.int32)
+    dec_rem = np.zeros(nd, np.int32)
+    eos = np.full(nd, -1, np.int32)
+    slots[:20], flags[:20] = np.arange(20), 1
+    dec_rem[:20] = np.where(steps == 0, k, steps)
+    eos[:20] = np.where(steps == 0, feed, -1)
+    take, p0 = 200, 100
+    tokens[nd:nd + take] = rng.integers(0, vocab, take)
+    slots[nd:nd + take] = 20
+    positions[nd:nd + take] = np.arange(p0, p0 + take)
+    flags[nd + take - 1] = 2
+    tiles = [np.array([20, 20]), np.array([p0, p0 + ct]), np.array([ct, take - ct])]
+    staged = torch.tensor(np.concatenate([tokens, slots, positions, flags, dec_rem, eos,
+                                          *tiles]).astype(np.int32), device="cuda")
+    tok_st, pos_st = eng._dev_state[0], eng._dev_state[1]
+    tok_st[:20] = torch.tensor(feed, dtype=torch.int32, device="cuda")
+    pos_st[:20] = torch.tensor(pos0, dtype=torch.int32, device="cuda")
+    pos_st[20] = p0
+    eng._bt_dev.copy_(torch.tensor(bt, device="cuda"))
+    for key in ("k", "v"):
+        eng.cache[key].copy_(torch.randn_like(eng.cache[key]))
+    state = [eng.cache["k"], eng.cache["v"], tok_st, pos_st]
+    init = [x.clone() for x in state]
+
+    def restore():
+        for x, x0 in zip(state, init):
+            x.copy_(x0)
+
+    fn = eng._get_dev_fused(t, k, nd, nt, mb, staged)
+    eager = fn().clone()
+    after = [x.clone() for x in state]
+    restore()
+    programs = ProgramCache("cuda")
+    programs.run("fused", fn)  # eager on the capture stream, then captured
+    restore()
+    replayed = programs.run("fused", fn).clone()
+    torch.cuda.synchronize()
+
+    def live(packed):  # the 20 decode columns, then the prefill rows' picks
+        return torch.cat([packed[:k * nd].reshape(k, nd)[:, :20].flatten(),
+                          packed[k * nd + nd:k * nd + nd + take]])
+
+    top1 = bool(torch.equal(live(eager), live(replayed)))
+    identical = top1 and all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in
+                             zip(after[:2], state[:2])) and all(
+        torch.equal(a[:-1], b[:-1]) for a, b in zip(after[2:], state[2:]))
+    # the (block, offset) rows the program may write, besides scratch block 0
+    expect = np.zeros((rcfg.num_blocks, bs), bool)
+    for j in range(20):
+        for p in range(pos0[j], pos0[j] + steps[j]):
+            expect[bt[j, p // bs], p % bs] = True
+    for p in range(p0, p0 + take):
+        expect[bt[20, p // bs], p % bs] = True
+    wrote = ((after[0] != init[0]) | (after[1] != init[1])).flatten(3).any(-1).any(0)
+    wrote = wrote.cpu().numpy()
+    outside = int((wrote & ~expect)[1:].sum())
+    missing = int((expect & ~wrote)[1:].sum())
+    dec = eager[:k * nd].reshape(k, nd).cpu().numpy()
+    sentinels_ok = bool(all((dec[steps[j]:, j] == -1).all() if steps[j] else
+                            (dec[:, j] == -1).all() for j in range(20)))
+    del init, after
+    eng._bt_dev.zero_()
+    torch.cuda.empty_cache()
+    return dict(tokens=t, k=k, n_dec=20, n_tiles=nt, layers=eng.spec.config.num_layers,
+                dtype=str(eng.dtype).split(".")[1], graph_replays=programs.replays,
+                bit_identical=identical, top1_identical=top1,
+                kv_rows_written_outside_schedule=outside, kv_rows_missing=missing,
+                frozen_and_retired_rows_surface_minus_one=sentinels_ok)
+
+
+def parity_fused_phase(torch, np, eng) -> None:
+    g = fused_program_check(torch, np, eng)
+    emit("parity_fused_graph_bf16", model="llama3_8b", **g)
+    if not (g["bit_identical"] and g["top1_identical"]):
+        raise AssertionError(f"parity_fused: the replayed mixed fused graph differs from its "
+                             f"eager run: {g}")
+    if g["kv_rows_written_outside_schedule"] or g["kv_rows_missing"]:
+        raise AssertionError(f"parity_fused: the program's KV writes are not the rows and "
+                             f"steps it schedules: {g}")
+    if not g["frozen_and_retired_rows_surface_minus_one"]:
+        raise AssertionError(f"parity_fused: a frozen or retired row surfaced a token: {g}")
 
 
 # ------------------------------------------------------------------- train
@@ -1287,8 +1548,15 @@ def main() -> int:
     launches, host_run = engine_phase(torch, np, llama, ragged, pa)
     parity_fp32_phase(torch, np, llama, ragged)
     # 5a. the device-resident serving path, and 5b. its parity
-    device_launches, eng = engine_device_phase(torch, np, llama, ragged, pa, host_run)
+    device_launches, eng, device_run = engine_device_phase(torch, np, llama, ragged, pa,
+                                                           host_run)
     parity_device_phase(torch, np, llama, ragged, eng)
+    del eng
+    torch.cuda.empty_cache()
+    # 5c. the reference bench's serving configuration: fused chunks
+    fused_launches, fused_in_replays, eng = engine_fused_phase(torch, np, llama, ragged, pa,
+                                                               device_run)
+    parity_fused_phase(torch, np, eng)
     del eng
     torch.cuda.empty_cache()
 
@@ -1315,6 +1583,8 @@ def main() -> int:
                             launches_per=("engine run" if name.startswith("paged")
                                           else "training step"),
                             launches_engine_device=device_launches.get(name),
+                            launches_engine_fused=fused_launches.get(name),
+                            launches_engine_fused_in_replays=fused_in_replays.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -1,10 +1,12 @@
 """Program cache of the ragged engine: the port's counterpart of the JAX
-engine's jit caches (``_dev_step_jits``, ``_dev_chunk_jits``).
+engine's jit caches (``_dev_step_jits``, ``_dev_chunk_jits``,
+``_dev_fused_jits``).
 
 A program is a function of no arguments that reads the engine's persistent
 tensors (parameters, paged cache, slot rows, block table, staging buffers)
 in place and returns one output tensor. The engine keys it by the JAX
-program's statics: ``("step", t, nd, nt, w)`` or ``("chunk", k, t, w)``.
+program's statics: ``("step", t, nd, nt, w)``, ``("chunk", k, t, w)`` or
+``("fused", t, k, nd, nt, w)``.
 
 ``ProgramCache.run(key, fn, capture)``:
 
@@ -20,6 +22,10 @@ program's statics: ``("step", t, nd, nt, w)`` or ``("chunk", k, t, w)``.
   graph's static output tensor: the next replay of that graph overwrites
   it, so the caller copies it out, in stream order, before it replays
   again. A failed capture raises.
+
+``ProgramCache.warm(key, fn)`` makes that first call ahead of serving (the
+engine's ``warmup()``, the counterpart of the JAX engine's ahead-of-time
+compiles), so a key's first dispatch already replays.
 
 The kernel wrappers count their launches in Python, which in a graph runs
 once, at capture, and launches nothing. The cache takes each graph's counts
@@ -79,6 +85,13 @@ class ProgramCache:
             self.replayed[i] += n
         self.replays += 1
         return out
+
+    def warm(self, key, fn) -> None:
+        """``run``'s first call of ``key`` (eager, then on the card the
+        capture), made ahead of the key's first dispatch; nothing if the key
+        ran before."""
+        if key not in self._seen:
+            self.run(key, fn)
 
     def _on_side_stream(self, fn) -> torch.Tensor:
         cur = torch.cuda.current_stream(self.device)

@@ -25,9 +25,16 @@ tokens agree with the JAX engine's in each:
 
 Both run plain or tiled SplitFuse steps, and with ``decode_run_ahead`` K
 greedy decode steps in one dispatch when every running sequence decodes.
-The JAX engine's fused, sched and spec modes, the prefix cache, KV tiers,
-low-bit pools, handoff, telemetry, fault injection and seeded sampling are
-not ported yet (``ROADMAP.md``).
+With ``fused_chunk`` >= 2 every turn goes through fused mixed chunks
+instead: one program runs a mixed SplitFuse step and then up to
+``fused_chunk`` - 1 decode steps for its decode rows, and up to
+``pipeline_depth`` chunks are in flight before the oldest is read back (the
+next chunk's decode feed stays on the device); ``warmup()`` prepares the
+program family before serving. On a CUDA device with device-resident state
+every fused program, mixed or not, replays as a CUDA graph.
+The JAX engine's sched and spec modes, the prefix cache, KV tiers, low-bit
+pools, handoff, telemetry, fault injection and seeded sampling are not
+ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -222,6 +229,17 @@ class RaggedConfig:
     # cover the reservation), run-ahead fuses at most this many steps:
     # decode progress is what frees blocks
     run_ahead_admission_cap: int = 8
+    # fused mixed chunks (>= 2 enables): EVERY dispatch is one program that
+    # runs the mixed SplitFuse step (decodes + prefill chunks) and then
+    # fused_chunk - 1 further greedy decode steps for the decode rows, the
+    # next token fed back on the device; arrivals ride step 0 of the same
+    # program. 0 disables.
+    fused_chunk: int = 0
+    # fused chunks in flight before the oldest is read back: chunk t + 1 is
+    # dispatched before chunk t's tokens reach the host, its decode feed
+    # read from a per-slot device row (bounded speculation; EOS and budgets
+    # reconciled on readback)
+    pipeline_depth: int = 2
     # device-resident scheduler state: slot rows and the block table live on
     # the device, steady decode stages nothing, readback runs one dispatch
     # behind. False: the host-staged path (token-identical).
@@ -298,6 +316,10 @@ class RaggedInferenceEngine:
                  eos_token_id: int | None = None, device=None):
         self.device = resolve_device(device)
         self.cfg = ragged_config or RaggedConfig()
+        if self.cfg.fused_chunk == 1 or self.cfg.fused_chunk < 0:
+            raise ValueError("fused_chunk must be 0 (off) or >= 2")
+        if self.cfg.fused_chunk and self.cfg.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
         self.spec = model
         if self.spec.ragged_forward_fn is None or self.spec.init_paged_cache_fn is None:
             raise ValueError(f"model {self.spec.name} has no ragged/paged support")
@@ -346,6 +368,16 @@ class RaggedInferenceEngine:
             self._dec_buckets.append(b)
             b *= 2
         self._dec_buckets.append(self.cfg.max_seqs)
+        # fused mixed-chunk pipeline (cfg.fused_chunk): dispatched chunks not
+        # yet read back, oldest first
+        self._inflight_chunks: list[dict] = []
+        # host-staged fused chunks: each slot's latest token on the device (+1
+        # scratch row), which chunk t + 1's decode feed reads before chunk t
+        # is read back
+        self._slot_toks = torch.zeros(self.cfg.max_seqs + 1, dtype=torch.int32,
+                                      device=self.device)
+        # host mirror of which slots have a valid device-side next token
+        self._slot_feed = np.zeros(self.cfg.max_seqs + 1, bool)
         # ---- device-resident scheduler state (cfg.device_state) ----
         # per-slot rows (+1 scratch row at max_seqs): last token, next
         # position, seed, prompt length, temperature, top-k, top-p. Written
@@ -391,6 +423,9 @@ class RaggedInferenceEngine:
         # run-ahead dispatches and the real tokens they scheduled (K a row)
         self.run_ahead_dispatches = 0
         self.run_ahead_tokens = 0
+        # model forwards dispatched: one a step, K a run-ahead chunk, and a
+        # fused chunk's step plus its scan steps
+        self.forwards = 0
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
@@ -439,7 +474,7 @@ class RaggedInferenceEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._queued or self._running or self._pending)
+        return bool(self._queued or self._running or self._inflight_chunks or self._pending)
 
     @property
     def finished_uids(self):
@@ -478,7 +513,8 @@ class RaggedInferenceEngine:
         """Retire cancelled/deadline-expired sequences (queued AND running)
         at the top of every step, so an abort never outlives one step. A
         running one referenced by a dispatch in flight (``refs`` > 0) is
-        released by ``_reconcile_pending`` as its references drain."""
+        released by ``_reconcile_pending`` or ``_reconcile_oldest`` as its
+        references drain."""
         now = None
         for seq in (*self._queued, *self._running.values()):
             if seq.status == "finished" and seq.deadline:
@@ -528,6 +564,7 @@ class RaggedInferenceEngine:
         seq.blocks = []
         self.block_tables[seq.slot, :] = 0
         self._bt_dirty.add(seq.slot)
+        self._slot_feed[seq.slot] = False
         self._free_slots.append(seq.slot)
         del self._running[seq.slot]
         seq.slot = -1
@@ -634,9 +671,10 @@ class RaggedInferenceEngine:
         self.h2d_bytes += arr.nbytes
         return torch.tensor(arr, device=self.device)
 
-    def _note_dispatch(self, t0: float) -> None:
+    def _note_dispatch(self, t0: float, forwards: int = 1) -> None:
         self.host_stage_ns += int((time.perf_counter() - t0) * 1e9)
         self.dispatch_count += 1
+        self.forwards += forwards
 
     def _emit_tokens(self, logits, emit) -> dict:
         """Shared step epilogue: greedy pick at the emit indices, extend the
@@ -661,6 +699,8 @@ class RaggedInferenceEngine:
         self._sweep_aborts()
         if not self.has_work:
             return {}  # the sweep retired everything schedulable
+        if self.cfg.fused_chunk >= 2:
+            return self._step_fused()
         if self.cfg.device_state:
             return self._step_device()
         # admission first: a newly admitted sequence is in prefill, which
@@ -828,7 +868,7 @@ class RaggedInferenceEngine:
         max_pos = max(s.pos + k - 1 for s in seqs)
         out = self._decode_steps(k, self._h2d(tokens), self._h2d(slots), self._h2d(positions),
                                  self._h2d(self._table_view(max_pos)))
-        self._note_dispatch(t0)
+        self._note_dispatch(t0, k)
         t1 = time.perf_counter()
         out = out.cpu().numpy()  # [K, bucket]
         self.readback_ns += int((time.perf_counter() - t1) * 1e9)
@@ -897,11 +937,13 @@ class RaggedInferenceEngine:
         self._bt_dev[self._upload(idx).long()] = self._upload(vals)
         return True
 
-    def _stage(self, arr: np.ndarray) -> torch.Tensor:
+    def _stage(self, arr: np.ndarray, account: bool = True) -> torch.Tensor:
         """The dispatch's packed int32 staging buffer: one tensor per staged
         length, which the programs (and their graphs) read in place. Its
         bytes are uploaded only when they differ from what it holds: steady
-        decode, whose slot and flag planes repeat, uploads nothing."""
+        decode, whose slot and flag planes repeat, uploads nothing.
+        ``account=False``: ``warmup()``'s scratch contents, which are no
+        dispatch's and count in no byte total."""
         arr = np.ascontiguousarray(arr, np.int32)
         raw = arr.tobytes()
         entry = self._staging.get(arr.shape[0])
@@ -911,15 +953,17 @@ class RaggedInferenceEngine:
         if entry[0] != raw:
             entry[1].copy_(self._host(arr), non_blocking=True)
             entry[0] = raw
-            self.h2d_bytes += arr.nbytes
-            self.stage_bytes += arr.nbytes
+            if account:
+                self.h2d_bytes += arr.nbytes
+                self.stage_bytes += arr.nbytes
         return entry[1]
 
     def _readback(self, out: torch.Tensor):
         """Start copying a dispatch's tokens to the host, in stream order
         right behind the dispatch: a graph's output is overwritten by its
-        next replay, which the window of two dispatches enqueues before this
-        one is reconciled. Returns (host tensor, event or None)."""
+        next replay, which the window of dispatches (two, or
+        ``pipeline_depth`` fused chunks) enqueues before this one is
+        reconciled. Returns (host tensor, event or None)."""
         if not self._on_card:
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -1028,6 +1072,7 @@ class RaggedInferenceEngine:
         for s in seqs:
             s.pos += k
             s.refs += 1
+            self._slot_feed[s.slot] = True
             emits.append((s, k))
         self.tokens_scheduled += k * t
         self.tokens_padded += k * (bucket - t)
@@ -1035,7 +1080,7 @@ class RaggedInferenceEngine:
         self.run_ahead_tokens += k * t
         self._pending.append({"kind": "chunk", "out": self._readback(out), "emits": emits,
                               "participants": seqs})
-        self._note_dispatch(t0)
+        self._note_dispatch(t0, k)
         self._note_steady(True, dirty, (bucket, tuple(slots)), h2d0, stage0)
         return True
 
@@ -1092,16 +1137,14 @@ class RaggedInferenceEngine:
                 tokens[sl] = seq.prompt[seq.pos:seq.pos + take]
                 slots[sl] = seq.slot
                 positions[sl] = np.arange(seq.pos, seq.pos + take, dtype=np.int32)
-                for ti in range(-(-take // ct)):
-                    ts[tile0 + ti] = seq.slot
-                    tpz[tile0 + ti] = seq.pos + ti * ct
-                    tv[tile0 + ti] = min(ct, take - ti * ct)
+                self._tile_meta(ts, tpz, tv, tile0, seq, take)
                 max_pos = max(max_pos, seq.pos + take - 1)
                 seq.pos += take
                 sched += take
                 if seq.pos == len(seq.prompt):
                     flags[start + take - 1] |= 2
                     emit.append((start + take - 1, seq))
+                    self._slot_feed[seq.slot] = True
             n = n_dec + sched
             t_total = nd + nt * ct
         else:
@@ -1125,6 +1168,7 @@ class RaggedInferenceEngine:
                 if seq.pos == len(seq.prompt):
                     flags[n - 1] |= 2
                     emit.append((n - 1, seq))
+                    self._slot_feed[seq.slot] = True
             t_total = 0 if n == 0 else next(b for b in self._buckets if b >= n)
         if n == 0:
             return False
@@ -1161,17 +1205,31 @@ class RaggedInferenceEngine:
             seq.generated.append(int(t))
             out[seq.uid] = int(t)
 
+    def _read(self, out) -> np.ndarray:
+        """A dispatch's tokens on the host, once its readback (``_readback``)
+        has landed."""
+        t0 = time.perf_counter()
+        host, event = out
+        if event is not None:
+            event.synchronize()
+        toks = host.cpu().numpy()
+        self.readback_ns += int((time.perf_counter() - t0) * 1e9)
+        return toks
+
+    def _drop_refs(self, participants) -> None:
+        """A reconciled dispatch's references: release each participant whose
+        last one this was and which has finished."""
+        for seq in participants:
+            seq.refs -= 1
+            if seq.finished and seq.refs == 0 and seq.slot >= 0:
+                self._release(seq)
+
     def _reconcile_pending(self) -> dict:
         """Read back the oldest pending dispatch's tokens, fold them into
         host state and release each participant whose last pending
         reference this was and which has finished."""
         rec = self._pending.pop(0)
-        t0 = time.perf_counter()
-        host, event = rec["out"]
-        if event is not None:
-            event.synchronize()
-        toks = host.cpu().numpy()
-        self.readback_ns += int((time.perf_counter() - t0) * 1e9)
+        toks = self._read(rec["out"])
         out: dict = {}
         if rec["kind"] == "step":
             for row, seq in rec["emit"]:
@@ -1179,10 +1237,7 @@ class RaggedInferenceEngine:
         else:  # chunk: [K, bucket]
             for j, (seq, k) in enumerate(rec["emits"]):
                 self._append_tokens(seq, toks[:k, j], out)
-        for seq in rec["participants"]:
-            seq.refs -= 1
-            if seq.finished and seq.refs == 0 and seq.slot >= 0:
-                self._release(seq)
+        self._drop_refs(rec["participants"])
         return out
 
     def _step_device(self) -> dict:
@@ -1202,10 +1257,440 @@ class RaggedInferenceEngine:
             self._deadlock_guard(0)
         return {}
 
-    def drain(self) -> dict:
-        """Reconcile every pending dispatch (a flush point for callers that
-        need host-complete state)."""
+    # ------------------------------------------------- fused mixed chunks
+    def _fused_scan(self, k: int, nd: int, tok0, slots, positions, dec_rem, eos_ids, done0,
+                    bt):
+        """Steps 1 .. k - 1 of a fused chunk over its decode region [0, nd):
+        row j runs its first ``dec_rem[j]`` steps, fed its previous pick,
+        until it picks its EOS. A frozen row (its steps used up) or a retired
+        one (EOS picked, or ``done0``: its feed was already its EOS) runs on
+        the scratch slot at position 0, writing no real state, keeps its
+        last token and surfaces -1. Returns ``[k, nd]`` tokens (step 0's
+        picks first, -1 for ``done0`` rows) and each row's final carry."""
+        fwd, max_seqs = self.spec.ragged_forward_fn, self.cfg.max_seqs
+        eosd = eos_ids[:nd]
+        has_eos = eosd >= 0
+        dec_slots = slots[:nd]
+        toks = tok0[:nd]
+        outs = [torch.where(done0, -1, toks)]
+        done = done0 | ((toks == eosd) & has_eos)
+        pos = positions[:nd] + 1
+        for i in range(1, k):
+            active = (i < dec_rem) & ~done
+            s = torch.where(active, dec_slots, max_seqs)
+            p = torch.where(active, pos, 0)
+            logits, _ = fwd(self.params, toks, s, p, bt, self.cache)
+            nxt = torch.where(active, torch.argmax(logits.float(), dim=-1).to(torch.int32), toks)
+            done = done | (active & (nxt == eosd) & has_eos)
+            outs.append(torch.where(active, nxt, -1))
+            toks = nxt
+            pos = pos + 1
+        return torch.stack(outs), toks
+
+    def _get_fused_chunk(self, k: int, nd: int, nt: int):
+        """Host-staged fused chunk: one mixed SplitFuse step over the staged
+        rows, then ``_fused_scan`` for the decode region. Rows [0, nd) are
+        decodes (``feed_sel`` picks the slot's device token, ``_slot_toks``,
+        over the host's), rows [nd, t) prefill chunks (tile-aligned when
+        ``nt`` > 0); ``pf_last`` rows complete a prompt and publish their
+        first token into ``_slot_toks``, and each decode row's final carry
+        goes there too, so the next chunk needs no readback of this one.
+        The program's output packs the ``[k, nd]`` decode tokens and step 0's
+        ``[t]`` picks into one int32 vector."""
+        fwd, max_seqs, ct = self.spec.ragged_forward_fn, self.cfg.max_seqs, self.cfg.prefill_tile
+
+        def chunk_fn(tokens, slots, positions, feed_sel, dec_rem, eos_ids, pf_last, tiles, bt):
+            st = self._slot_toks
+            t = tokens.shape[0]
+            done0 = None
+            if nd:
+                fed = torch.where(feed_sel > 0, st[slots[:nd].long()], tokens[:nd])
+                tokens = torch.cat([fed, tokens[nd:]])
+                # entry-case retirement: a chunk dispatched before the host
+                # read a row's EOS finds that EOS as its feed; the row runs
+                # on the scratch slot for the whole chunk
+                done0 = (fed == eos_ids) & (eos_ids >= 0)
+                slots = torch.cat([torch.where(done0, max_seqs, slots[:nd]), slots[nd:]])
+                positions = torch.cat([torch.where(done0, 0, positions[:nd]), positions[nd:]])
+            logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
+                            prefill_tiles=(nd, *tiles, ct) if nt else None)
+            tok0 = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            if t > nd:
+                mask = pf_last[nd:] > 0
+                sl_pf = torch.where(mask, slots[nd:], max_seqs).long()
+                st.index_put_((sl_pf,), torch.where(mask, tok0[nd:], st[sl_pf]))
+            if not nd:
+                return tok0
+            dec_toks, last = self._fused_scan(k, nd, tok0, slots, positions, dec_rem, eos_ids,
+                                              done0, bt)
+            st.index_put_((slots[:nd].long(),), last)  # done0 and pad rows: scratch
+            return torch.cat([dec_toks.reshape(-1), tok0])
+
+        return chunk_fn
+
+    def _width_ladder(self) -> list[int]:
+        """The block-table widths ``_table_width`` can give."""
+        mb = self.cfg.max_blocks_per_seq
+        if mb <= 64:
+            return [mb]
+        widths, b = [], 16
+        while b < mb:
+            widths.append(b)
+            b *= 4
+        widths.append(mb)
+        return widths
+
+    def _fused_family(self):
+        """Every fused program ``_dispatch_fused`` can dispatch, as the JAX
+        engine's ``_warmup_fused`` enumerates them: ``(k, nd, nt, w, t)`` for
+        the scan depths (``fused_chunk`` and each power of two below), the
+        all-or-nothing decode region, the tile counts ``_plan_prefill_tiles``
+        gives (flat: the token buckets in ``nt``'s place) and the table
+        widths; ``t`` is the program's token count."""
+        cfg = self.cfg
+        ct = cfg.prefill_tile if self._use_tiles else 0
+        budget = cfg.max_tokens_per_step
+        nd_full = next(b for b in self._dec_buckets if b >= min(cfg.max_seqs, budget))
+        ks = {cfg.fused_chunk}
+        p = 1
+        while p < cfg.fused_chunk:
+            ks.add(p)
+            p *= 2
+        combos = set()
+        if ct:
+            def nts(cap):
+                vals, b = {cap}, 1
+                while b <= cap:
+                    vals.add(b)
+                    b *= 2
+                return vals
+
+            combos |= {(1, 0, nt) for nt in nts(max(1, budget // ct))}
+            capd = max(1, (budget - nd_full) // ct)
+            combos |= {(kk, nd_full, nt) for kk in ks for nt in nts(capd) | {0}}
+        else:
+            combos |= {(1, 0, b) for b in self._buckets}
+            combos |= {(kk, nd_full, b) for kk in ks for b in [0] + self._buckets}
+        for kk, nd, nt, w in sorted((*c, w) for c in combos for w in self._width_ladder()):
+            t = nd + nt * ct if ct else (nd if nt == 0 else nt)
+            if 0 < t and nd <= t <= budget + nd:
+                yield kk, nd, nt, w, t
+
+    def warmup(self) -> int:
+        """Prepare the fused-chunk program family (``fused_chunk`` >= 2)
+        before serving, the counterpart of the JAX engine's ``warmup()``:
+        each program ``_fused_family`` lists. On the device-resident path
+        each runs once eagerly on an all-scratch staging buffer (every slot
+        ``max_seqs``, flags 0, no valid tile row: its KV writes land in
+        scratch block 0 and its slot-row writes in the scratch row, so no
+        engine state changes) and, on a CUDA device, is captured, so serving
+        replays it from its first dispatch. The host-staged path runs its
+        programs eagerly and has nothing to prepare. Returns the number of
+        programs (a program two combinations reach counts twice, as in the
+        JAX engine)."""
+        if self.cfg.fused_chunk < 2:
+            return 0
+        max_seqs = self.cfg.max_seqs
+        n = 0
+        for k, nd, nt, w, t in self._fused_family():
+            n += 1
+            if not self.cfg.device_state:
+                continue
+            nt_prog = nt if self._use_tiles else 0
+            ndl, ntl = max(nd, 1), max(nt_prog, 1)
+            parts = [np.zeros(t), np.full(t, max_seqs), np.zeros(2 * t), np.zeros(ndl),
+                     np.full(ndl, -1)]
+            if nt_prog:
+                parts += [np.full(ntl, max_seqs), np.zeros(2 * ntl)]
+            staged = self._stage(np.concatenate(parts).astype(np.int32), account=False)
+            self.programs.warm(("fused", t, k, nd, nt_prog, w),
+                               self._get_dev_fused(t, k, nd, nt_prog, w, staged))
+        return n
+
+    def _dispatch_fused(self) -> bool:
+        """Schedule and dispatch ONE fused chunk from host state (no
+        readback): decode rows first, each for ``k_s`` = min(fused_chunk,
+        its remaining budget) steps, in a decode region of all-or-nothing
+        size; then prefill chunks after it, flat or tile-aligned; the scan
+        depth k the largest ``k_s`` rounded up to a power of two. False when
+        nothing is schedulable."""
+        self._admit_queued()
+        t0 = time.perf_counter()
+        cfg = self.cfg
+        k_max = cfg.fused_chunk
+        ct = cfg.prefill_tile if self._use_tiles else 0
+        budget = cfg.max_tokens_per_step
+        decs: list[tuple[_SeqState, int]] = []
+        for seq in list(self._running.values()):
+            if seq.finished or not seq.in_decode:
+                continue
+            rem = seq.max_new_tokens - (seq.pos - len(seq.prompt))
+            if rem <= 0:
+                continue
+            k_s = min(k_max, rem)
+            if not self._ensure_capacity(seq, seq.pos + k_s):
+                continue  # admitted sequences cannot hit this (reservation)
+            decs.append((seq, k_s))
+            if len(decs) >= min(budget, cfg.max_seqs):
+                break
+        # the decode region is 0 rows or one fixed bucket: every (k, nd, nt,
+        # width) is a program of its own, and padded rows ride the scratch slot
+        nd = 0 if not decs else next(b for b in self._dec_buckets
+                                     if b >= min(cfg.max_seqs, budget))
+        chunks: list[tuple[_SeqState, int, int]] = []  # (seq, first row, take)
+        if ct:
+            tile_chunks, nt = self._plan_prefill_tiles(nd, budget)
+            chunks = [(seq, nd + tile0 * ct, take) for seq, tile0, take in tile_chunks]
+            t_total = nd + nt * ct
+        else:
+            nt = 0
+            fill = nd
+            for seq in list(self._running.values()):
+                if seq.finished or seq.in_decode or fill >= budget:
+                    continue
+                take = min(budget - fill, len(seq.prompt) - seq.pos)
+                while take and not self._ensure_capacity(seq, seq.pos + take):
+                    take -= 1  # partial chunk under pool pressure
+                if take <= 0:
+                    continue
+                chunks.append((seq, fill, take))
+                fill += take
+            t_total = nd if fill == nd else next(b for b in self._buckets if b >= fill)
+        if not decs and not chunks:
+            return False
+        k = min(k_max, 1 << (max(ks for _, ks in decs) - 1).bit_length()) if decs else 1
+        if cfg.device_state:
+            return self._dispatch_fused_device(decs, chunks, nd, nt, k, t_total, t0)
+
+        tokens, slots, positions, dec_rem, eos_row, tiles, pf_done, max_pos = \
+            self._fused_rows(decs, chunks, nd, nt, k, t_total)
+        feed_sel = np.zeros(max(nd, 1), np.int32)
+        for j, (seq, _) in enumerate(decs):
+            positions[j] = seq.pos
+            if self._slot_feed[seq.slot]:
+                feed_sel[j] = 1
+            else:
+                if seq.pos - len(seq.prompt) >= len(seq.generated):
+                    raise RuntimeError(
+                        "fused scheduler: host token unavailable and no device feed for "
+                        f"uid={seq.uid!r} (pos={seq.pos})")
+                tokens[j] = seq.token_at(seq.pos)
+        pf_last = np.zeros_like(tokens)
+        for row, _ in pf_done:
+            pf_last[row] = 1
+        packed = self._get_fused_chunk(k, nd, nt)(
+            self._h2d(tokens), self._h2d(slots), self._h2d(positions), self._h2d(feed_sel),
+            self._h2d(dec_rem), self._h2d(eos_row), self._h2d(pf_last),
+            tuple(self._h2d(x) for x in tiles) if nt else None,
+            self._h2d(self._table_view(max_pos)))
+        self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
+        self._push_chunk(packed, k, nd, decs, chunks, pf_done)
+        return True
+
+    def _fused_rows(self, decs, chunks, nd: int, nt: int, k: int, t_total: int):
+        """The rows both fused paths stage, and the chunk's token accounting.
+        Decode rows [0, len(decs)) carry their slot, step count and EOS (-1:
+        none); each prompt chunk its token run at positions from ``seq.pos``
+        (which advances past it) and, tiled, its tile planes. Scheduled
+        tokens: step 0's real rows and the scan steps each decode row runs;
+        padded: the rest of the ``t_total`` + (k - 1) nd rows. Returns
+        (tokens, slots, positions, dec_rem, eos, (tile slot, tile position,
+        tile valid rows), the (row, seq) of each prompt-completing row, the
+        highest position the chunk touches)."""
+        cfg = self.cfg
+        ct = cfg.prefill_tile if self._use_tiles else 0
+        n_rows = max(t_total, 1)
+        tokens = np.zeros(n_rows, np.int32)
+        slots = np.full(n_rows, cfg.max_seqs, np.int32)
+        positions = np.zeros(n_rows, np.int32)
+        dec_rem = np.zeros(max(nd, 1), np.int32)
+        eos_row = np.full(max(nd, 1), -1, np.int32)
+        for j, (seq, k_s) in enumerate(decs):
+            slots[j] = seq.slot
+            dec_rem[j] = k_s
+            if seq.eos_token_id is not None:
+                eos_row[j] = seq.eos_token_id
+        max_pos = max((seq.pos + k_s - 1 for seq, k_s in decs), default=0)
+        ts = np.full(max(nt, 1), cfg.max_seqs, np.int32)
+        tpos = np.zeros(max(nt, 1), np.int32)
+        tval = np.zeros(max(nt, 1), np.int32)
+        pf_done: list[tuple[int, _SeqState]] = []
+        for seq, start, take in chunks:
+            tokens[start:start + take] = seq.prompt[seq.pos:seq.pos + take]
+            slots[start:start + take] = seq.slot
+            positions[start:start + take] = np.arange(seq.pos, seq.pos + take, dtype=np.int32)
+            if ct:
+                self._tile_meta(ts, tpos, tval, (start - nd) // ct, seq, take)
+            if seq.pos + take == len(seq.prompt):
+                pf_done.append((start + take - 1, seq))
+            max_pos = max(max_pos, seq.pos + take - 1)
+            seq.pos += take
+        n0 = len(decs) + sum(take for _, _, take in chunks)
+        active_scan = sum(k_s - 1 for _, k_s in decs)
+        self.tokens_scheduled += n0 + active_scan
+        self.tokens_padded += (t_total - n0) + (k - 1) * nd - active_scan
+        return tokens, slots, positions, dec_rem, eos_row, (ts, tpos, tval), pf_done, max_pos
+
+    def _tile_meta(self, ts, tpos, tval, tile0: int, seq: _SeqState, take: int) -> None:
+        """The tile planes of a prompt chunk of ``take`` tokens of ``seq``
+        from ``seq.pos``, laid from tile ``tile0``: slot, first position and
+        valid rows of each of its tiles."""
+        ct = self.cfg.prefill_tile
+        for ti in range(-(-take // ct)):
+            ts[tile0 + ti] = seq.slot
+            tpos[tile0 + ti] = seq.pos + ti * ct
+            tval[tile0 + ti] = min(ct, take - ti * ct)
+
+    def _get_dev_fused(self, t: int, k: int, nd: int, nt: int, w: int, staged: torch.Tensor):
+        """Device-resident fused chunk over ``staged`` (tokens | slots |
+        positions | flags | dec_rem | eos, then the tile planes): the
+        program of ``_get_fused_chunk``, with each decode row's feed token
+        and position gathered from its slot rows (flag bit 0) and the slot
+        rows updated in place: prompt-completing rows (flag bit 1) set their
+        token row, prefill rows max-scatter their position, and each decode
+        row leaves its final carry and advances by min(dec_rem, k). A
+        program of no arguments over persistent tensors, as
+        ``_get_dev_step``; its output packs the ``[k, nd]`` decode tokens
+        and step 0's ``[t]`` picks."""
+        fwd = self.spec.ragged_forward_fn
+        ct = self.cfg.prefill_tile if self._use_tiles else 0
+        max_seqs = self.cfg.max_seqs
+        ndl, ntl = max(nd, 1), max(nt, 1)
+        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
+        b = 4 * t + 2 * ndl  # start of the tile planes
+
+        def fused_fn():
+            slots, positions, flags = staged[t:2 * t], staged[2 * t:3 * t], staged[3 * t:4 * t]
+            dec_rem, eos_ids = staged[4 * t:4 * t + ndl], staged[4 * t + ndl:b]
+            feed = (flags & 1) > 0
+            sl = slots.long()
+            # decode rows feed the token their slot row holds
+            tokens = torch.where(feed, tok_st[sl], staged[0:t])
+            positions = torch.where(feed & (slots != max_seqs), pos_st[sl], positions)
+            done0 = None
+            if nd:
+                done0 = (tokens[:nd] == eos_ids[:nd]) & (eos_ids[:nd] >= 0)
+                slots = torch.cat([torch.where(done0, max_seqs, slots[:nd]), slots[nd:]])
+                positions = torch.cat([torch.where(done0, 0, positions[:nd]), positions[nd:]])
+            real = slots != max_seqs
+            tiles = None
+            if nt:
+                tiles = (nd, staged[b:b + ntl], staged[b + ntl:b + 2 * ntl],
+                         staged[b + 2 * ntl:b + 3 * ntl], ct)
+            logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
+                            prefill_tiles=tiles)
+            tok0 = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            if t > nd:
+                mask = (flags[nd:] & 2) > 0
+                sl_pf = torch.where(mask, slots[nd:], max_seqs).long()
+                tok_st.index_put_((sl_pf,), torch.where(mask, tok0[nd:], tok_st[sl_pf]))
+                sl_p = torch.where(real[nd:], slots[nd:], max_seqs).long()
+                pos_st.scatter_reduce_(0, sl_p, torch.where(real[nd:], positions[nd:] + 1, 0),
+                                       "amax")
+            if not nd:
+                return tok0
+            dec_toks, last = self._fused_scan(k, nd, tok0, slots, positions, dec_rem, eos_ids,
+                                              done0, bt)
+            rd = real[:nd]  # done0 rows are on the scratch slot already
+            sl_d = torch.where(rd, slots[:nd], max_seqs).long()
+            tok_st.index_put_((sl_d,), torch.where(rd, last, tok_st[sl_d]))
+            pos_st.index_add_(0, sl_d, torch.where(rd, torch.clamp(dec_rem, max=k), 0))
+            return torch.cat([dec_toks.reshape(-1), tok0])
+
+        return fused_fn
+
+    def _dispatch_fused_device(self, decs, chunks, nd: int, nt: int, k: int, t_total: int,
+                               t0: float) -> bool:
+        """Stage and dispatch one fused chunk against the device-resident slot
+        rows: decode rows carry only their slot, feed flag, step count and
+        EOS (token and position are on the device), prefill rows their
+        token runs, in ONE packed buffer that byte-compares equal across
+        steady decode chunks. Every program goes through the program cache,
+        mixed ones too, so on the card each replays as a CUDA graph."""
+        h2d0, stage0 = self.h2d_bytes, self.stage_bytes
+        tokens, slots, positions, dec_rem, eos_row, tiles, pf_done, max_pos = \
+            self._fused_rows(decs, chunks, nd, nt, k, t_total)
+        flags = np.zeros_like(tokens)
+        flags[:len(decs)] = 1  # token and position from the slot rows
+        for row, _ in pf_done:
+            flags[row] |= 2
+        parts = [tokens, slots, positions, flags, dec_rem, eos_row]
+        if nt:
+            parts += tiles
+        dirty = self._sync_bt()
+        staged = self._stage(np.concatenate(parts))
+        w = self._table_width(max_pos)
+        t = tokens.shape[0]
+        packed = self.programs.run(("fused", t, k, nd, nt, w),
+                                   self._get_dev_fused(t, k, nd, nt, w, staged))
+        self._push_chunk(packed, k, nd, decs, chunks, pf_done)
+        self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
+        self._note_steady(not chunks, dirty, (staged.shape[0], tuple(slots)), h2d0, stage0)
+        return True
+
+    def _push_chunk(self, packed: torch.Tensor, k: int, nd: int, decs, chunks,
+                    pf_done) -> None:
+        """Enter a dispatched chunk into the window: its output copied to the
+        host right behind it, each participant referenced (released only
+        when every chunk referencing it is reconciled), and each decoding or
+        prompt-completing slot marked as fed from the device."""
+        participants: dict[int, _SeqState] = {}
+        for seq, k_s in decs:
+            seq.pos += k_s
+            self._slot_feed[seq.slot] = True
+            participants[seq.slot] = seq
+        for _, seq in pf_done:
+            self._slot_feed[seq.slot] = True
+            participants[seq.slot] = seq
+        for seq, _, _ in chunks:
+            participants[seq.slot] = seq
+        for seq in participants.values():
+            seq.refs += 1
+        self._inflight_chunks.append({
+            "out": self._readback(packed), "k": k, "nd": nd, "decs": decs,
+            "pf_done": pf_done, "participants": list(participants.values())})
+
+    def _reconcile_oldest(self) -> dict:
+        """Read back the OLDEST chunk in flight and fold its tokens into host
+        state: a prompt-completing row's first token, then each decode row's
+        ``k_s`` tokens, cut at EOS and at ``max_new_tokens`` (speculated
+        tokens past either are discarded); then the deferred releases."""
+        rec = self._inflight_chunks.pop(0)
+        packed = self._read(rec["out"])
+        n_dec = rec["k"] * rec["nd"]
+        dec_toks = packed[:n_dec].reshape(rec["k"], rec["nd"])
+        tok0 = packed[n_dec:]
         out: dict = {}
+        for row, seq in rec["pf_done"]:
+            self._append_tokens(seq, [int(tok0[row])], out)
+        for j, (seq, k_s) in enumerate(rec["decs"]):
+            self._append_tokens(seq, dec_toks[:k_s, j], out)
+        self._drop_refs(rec["participants"])
+        return out
+
+    def _step_fused(self) -> dict:
+        """One fused-pipeline turn: fill the window of ``pipeline_depth``
+        chunks, then reconcile the oldest when the window is full or nothing
+        new could be dispatched."""
+        dispatched = False
+        while len(self._inflight_chunks) < self.cfg.pipeline_depth:
+            if not self._dispatch_fused():
+                break
+            dispatched = True
+        if self._inflight_chunks and (
+                not dispatched or len(self._inflight_chunks) >= self.cfg.pipeline_depth):
+            return self._reconcile_oldest()
+        if not dispatched and not self._inflight_chunks:
+            self._deadlock_guard(0)
+        return {}
+
+    def drain(self) -> dict:
+        """Reconcile every fused chunk in flight and every pending dispatch
+        (a flush point for callers that need host-complete state)."""
+        out: dict = {}
+        while self._inflight_chunks:
+            out.update(self._reconcile_oldest())
         while self._pending:
             out.update(self._reconcile_pending())
         return out

@@ -1,5 +1,5 @@
 // Attention at head dims above 256 for Hopper (sm_90a): the five kernels'
-// counterparts for d = 264 .. 1024 (d % 8 == 0), in fp32 and bf16.
+// counterparts for every d > 256 with d % 8 == 0, in fp32 and bf16.
 //
 // Replaces, at those head dims, the TPU kernels the other sources replace at
 // d <= 256: deepspeed_tpu/ops/pallas/flash_attention.py `_fwd_kernel`,
@@ -25,7 +25,11 @@
 // as the Pallas kernels do, and the backward multiplies s and ds by the
 // scale, as `_fa_bwd_xla` does. Shared memory grows as 8 rows x d x 4 B a
 // vector: four of them in dK/dV at d = 1024 and two staged 32 x 256 tiles,
-// 197 KB, which bounds d at 1024.
+// 197 KB of a CTA's 227 KB. Above 1024 (`kSharedMaxD`) the row vectors move
+// to the CTA's own slice of an fp32 workspace in global memory that the
+// caller owns (`kSpill`; vecs x 8 x d floats a CTA), and only the staged
+// tiles stay in shared memory: the same code over other addresses, so any
+// head dim runs. Up to 1024 nothing changed.
 
 #include "common.cuh"
 
@@ -38,7 +42,7 @@ constexpr int kTile = 32;          // rows of a streamed tile, one a lane
 constexpr int kChunk = 256;        // head dims of a streamed tile
 constexpr int kLd = kChunk + 4;    // its shared row stride (floats): lanes' 16-byte loads
                                    // of rows j = 0..7 fall on distinct banks
-constexpr int kMaxD = 1024;
+constexpr int kSharedMaxD = 1024;  // above it the row vectors live in global memory
 constexpr int kTileFloats = kTile * kLd;
 
 struct Strides {
@@ -190,6 +194,36 @@ __device__ __forceinline__ void attend(const float* qs, float* acc, float* tile,
   }
 }
 
+// The CTA's row vectors, `vecs` [kRows][d] fp32 arrays: at the front of
+// shared memory, or (kSpill) the CTA's slice of the caller's workspace.
+template <bool kSpill>
+__device__ __forceinline__ float* row_vectors(float* smem, float* spill, int vecs, int d) {
+  if constexpr (kSpill) {
+    const long long cta =
+        blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z);
+    return spill + cta * vecs * kRows * d;
+  } else {
+    return smem;
+  }
+}
+
+// The staged tiles: shared memory past the row vectors, or all of it (kSpill).
+template <bool kSpill>
+__device__ __forceinline__ float* tile_space(float* smem, float* vectors_end) {
+  if constexpr (kSpill) {
+    return smem;
+  } else {
+    return vectors_end;
+  }
+}
+
+// Before a lane reads a row's dims that other lanes of its warp wrote: in
+// global memory (kSpill) the warp's order is not enough.
+template <bool kSpill>
+__device__ __forceinline__ void rows_written() {
+  if constexpr (kSpill) __syncwarp();
+}
+
 // Write the warp's normalised output row (acc / max(l, 1e-30)) to `dst`.
 template <typename T>
 __device__ __forceinline__ void store_out(T* dst, const float* acc, int d, float l) {
@@ -200,16 +234,16 @@ __device__ __forceinline__ void store_out(T* dst, const float* acc, int d, float
 
 // ------------------------------------------------------------ flash forward
 // grid (ceil(n_q / 8), hq, b); warp w: query row 8 blockIdx.x + w
-template <typename T>
+template <typename T, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 wide_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       T* __restrict__ o, float* __restrict__ lse, Strides sq, Strides sk,
                       Strides sv, Strides so, int hq, int hkv, int n_q, int n_kv, int d,
-                      int causal, float scale) {
+                      int causal, float scale, float* __restrict__ spill) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
+  float* qs = row_vectors<kSpill>(smem, spill, 2, d);
   float* acc = qs + kRows * d;
-  float* tile = acc + kRows * d;
+  float* tile = tile_space<kSpill>(smem, acc + kRows * d);
   const int w = threadIdx.x >> 5;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -227,6 +261,7 @@ wide_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   attend(qs, acc, tile, k + b * sk.b + hk * sk.h, StridedRows{sk.s}, v + b * sv.b + hk * sv.h,
          StridedRows{sv.s}, d, n_keys, last, m, l);
   if (!live) return;
+  rows_written<kSpill>();
   store_out(o + b * so.b + (long long)i * so.s + h * so.h, acc + w * d, d, l);
   if ((threadIdx.x & 31) == 0)
     lse[((long long)b * hq + h) * n_q + i] = m + logf(fmaxf(l, 1e-30f));
@@ -235,18 +270,18 @@ wide_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 // ------------------------------------------------------------- flash dQ
 // grid (ceil(n_q / 8), hq, b); warp w: query row 8 blockIdx.x + w.
 // dq = sum_j ds_j k_j, ds = p (dp - delta) scale, p = exp(s scale - lse).
-template <typename T>
+template <typename T, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 wide_flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dq, Strides sq, Strides sk,
                      Strides sv, Strides sdo, Strides sdq, int hq, int hkv, int n_q, int n_kv,
-                     int d, int causal, float scale) {
+                     int d, int causal, float scale, float* __restrict__ spill) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
+  float* qs = row_vectors<kSpill>(smem, spill, 3, d);
   float* dos = qs + kRows * d;
   float* acc = dos + kRows * d;
-  float* tile_a = acc + kRows * d;
+  float* tile_a = tile_space<kSpill>(smem, acc + kRows * d);
   float* tile_b = tile_a + kTileFloats;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -292,6 +327,7 @@ wide_flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
   }
   if (!live) return;
+  rows_written<kSpill>();
   T* dst = dq + b * sdq.b + (long long)i * sdq.s + h * sdq.h;
   for (int c = lane; c < d; c += 32) dst[c] = dstpu::from_float<T>(acc[w * d + c]);
 }
@@ -299,20 +335,21 @@ wide_flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ----------------------------------------------------------- flash dK/dV
 // grid (ceil(n_kv / 8), hkv, b); warp w: key row 8 blockIdx.x + w, summed
 // over the KV head's query heads and every query row that sees it.
-template <typename T>
+template <typename T, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 wide_flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
                        Strides sv, Strides sdo, Strides sdk, Strides sdv, int hq, int hkv,
-                       int n_q, int n_kv, int d, int causal, float scale) {
+                       int n_q, int n_kv, int d, int causal, float scale,
+                       float* __restrict__ spill) {
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
+  float* ks = row_vectors<kSpill>(smem, spill, 4, d);
   float* vs = ks + kRows * d;
   float* dk_acc = vs + kRows * d;
   float* dv_acc = dk_acc + kRows * d;
-  float* tile_a = dv_acc + kRows * d;
+  float* tile_a = tile_space<kSpill>(smem, dv_acc + kRows * d);
   float* tile_b = tile_a + kTileFloats;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -361,6 +398,7 @@ wide_flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (!live) return;
+  rows_written<kSpill>();
   T* dkr = dk + b * sdk.b + (long long)kj * sdk.s + hk * sdk.h;
   T* dvr = dv + b * sdv.b + (long long)kj * sdv.s + hk * sdv.h;
   for (int c = lane; c < d; c += 32) {
@@ -373,17 +411,18 @@ wide_flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // grid (tokens, hkv, ceil(rep / 8)); warp w: query head hk rep + 8
 // blockIdx.z + w of token t, which sees keys 0 .. positions[t] of the
 // sequence in table row slots[t].
-template <typename T>
+template <typename T, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 wide_paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                          const T* __restrict__ v_pool, const int* __restrict__ slots,
                          const int* __restrict__ positions,
                          const int* __restrict__ block_tables, int bt_stride,
-                         T* __restrict__ out, int hq, int hkv, int d, int bs, float scale) {
+                         T* __restrict__ out, int hq, int hkv, int d, int bs, float scale,
+                         float* __restrict__ spill) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
+  float* qs = row_vectors<kSpill>(smem, spill, 2, d);
   float* acc = qs + kRows * d;
-  float* tile = acc + kRows * d;
+  float* tile = tile_space<kSpill>(smem, acc + kRows * d);
   const int w = threadIdx.x >> 5;
   const int t = blockIdx.x;
   const int hk = blockIdx.y;
@@ -399,6 +438,7 @@ wide_paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float m, l;
   attend(qs, acc, tile, k_pool + hk * d, rows, v_pool + hk * d, rows, d, pos + 1,
          live ? pos : -1, m, l);
+  rows_written<kSpill>();
   if (live) store_out(out + row * d, acc + w * d, d, l);
 }
 
@@ -407,18 +447,18 @@ wide_paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // = c ceil(ct / 8) + g) at query head blockIdx.y. Row i of tile c sits at
 // position tile_pos0[c] + i of the sequence in table row tile_slot[c]; rows
 // at or past tile_valid[c] are padding and come out as zeros.
-template <typename T>
+template <typename T, bool kSpill>
 __global__ void __launch_bounds__(kThreads)
 wide_paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                           const T* __restrict__ v_pool, const int* __restrict__ tile_slot,
                           const int* __restrict__ tile_pos0, const int* __restrict__ tile_valid,
                           const int* __restrict__ block_tables, int bt_stride,
                           T* __restrict__ out, int hq, int hkv, int d, int bs, int ct,
-                          float scale) {
+                          float scale, float* __restrict__ spill) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
+  float* qs = row_vectors<kSpill>(smem, spill, 2, d);
   float* acc = qs + kRows * d;
-  float* tile = acc + kRows * d;
+  float* tile = tile_space<kSpill>(smem, acc + kRows * d);
   const int w = threadIdx.x >> 5;
   const int groups = (ct + kRows - 1) / kRows;
   const int c = blockIdx.x / groups;
@@ -440,13 +480,17 @@ wide_paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float m, l;
   attend(qs, acc, tile, k_pool + hk * d, rows, v_pool + hk * d, rows, d, n_keys,
          live ? pos0 + i : -1, m, l);
+  rows_written<kSpill>();
   if (row) store_out(out + qrow * d, acc + w * d, d, live ? l : 1.f);  // pad rows: acc is 0
 }
 
 // ------------------------------------------------------------------ launch
-// shared floats: `vecs` [8][d] vectors and `tiles` staged tiles
+// shared floats: `vecs` [8][d] vectors (none when they live in global memory)
+// and `tiles` staged tiles
+inline bool spills(int d) { return d > kSharedMaxD; }
+
 inline size_t smem_bytes(int d, int vecs, int tiles) {
-  return sizeof(float) * ((size_t)vecs * kRows * d + (size_t)tiles * kTileFloats);
+  return sizeof(float) * ((size_t)(spills(d) ? 0 : vecs) * kRows * d + (size_t)tiles * kTileFloats);
 }
 
 template <typename K>
@@ -454,22 +498,24 @@ cudaError_t prepare(K kernel, size_t smem) {
   return dstpu::allow_smem(kernel, smem);
 }
 
-inline bool bad(int d) { return d <= 256 || d > kMaxD || d % 8; }
+// above kSharedMaxD the caller's workspace must hold the row vectors
+inline bool bad(int d, const void* spill) { return d <= 256 || d % 8 || (spills(d) && !spill); }
 
 inline Strides strides_at(const long long* s, int t) { return {s[3 * t], s[3 * t + 1], s[3 * t + 2]}; }
 
 template <typename T>
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                       const long long* st, int b, int n_q, int n_kv, int hq, int hkv, int d,
-                      int causal, float scale, cudaStream_t stream) {
+                      int causal, float scale, float* spill, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, 2, 1);
-  cudaError_t err = prepare(wide_flash_fwd_kernel<T>, smem);
+  const auto kernel = spills(d) ? wide_flash_fwd_kernel<T, true> : wide_flash_fwd_kernel<T, false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_q + kRows - 1) / kRows, hq, b);
-  wide_flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), strides_at(st, 0), strides_at(st, 1),
-      strides_at(st, 2), strides_at(st, 3), hq, hkv, n_q, n_kv, d, causal, scale);
+      strides_at(st, 2), strides_at(st, 3), hq, hkv, n_q, n_kv, d, causal, scale, spill);
   return cudaGetLastError();
 }
 
@@ -477,17 +523,18 @@ template <typename T>
 cudaError_t flash_dq(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, const long long* st, int b,
                      int n_q, int n_kv, int hq, int hkv, int d, int causal, float scale,
-                     cudaStream_t stream) {
+                     float* spill, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, 3, 2);
-  cudaError_t err = prepare(wide_flash_dq_kernel<T>, smem);
+  const auto kernel = spills(d) ? wide_flash_dq_kernel<T, true> : wide_flash_dq_kernel<T, false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_q + kRows - 1) / kRows, hq, b);
-  wide_flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dq), strides_at(st, 0),
       strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), strides_at(st, 4), hq, hkv, n_q,
-      n_kv, d, causal, scale);
+      n_kv, d, causal, scale, spill);
   return cudaGetLastError();
 }
 
@@ -495,17 +542,19 @@ template <typename T>
 cudaError_t flash_dkdv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv,
                        const long long* st, int b, int n_q, int n_kv, int hq, int hkv, int d,
-                       int causal, float scale, cudaStream_t stream) {
+                       int causal, float scale, float* spill, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, 4, 2);
-  cudaError_t err = prepare(wide_flash_dkdv_kernel<T>, smem);
+  const auto kernel =
+      spills(d) ? wide_flash_dkdv_kernel<T, true> : wide_flash_dkdv_kernel<T, false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_kv + kRows - 1) / kRows, hkv, b);
-  wide_flash_dkdv_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
       strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), strides_at(st, 3),
-      strides_at(st, 4), strides_at(st, 5), hq, hkv, n_q, n_kv, d, causal, scale);
+      strides_at(st, 4), strides_at(st, 5), hq, hkv, n_q, n_kv, d, causal, scale, spill);
   return cudaGetLastError();
 }
 
@@ -513,16 +562,18 @@ template <typename T>
 cudaError_t paged_decode(const void* q, const void* k_pool, const void* v_pool,
                          const void* slots, const void* positions, const void* block_tables,
                          int bt_stride, void* out, int n_tokens, int hq, int hkv, int d, int bs,
-                         float scale, cudaStream_t stream) {
+                         float scale, float* spill, cudaStream_t stream) {
   const size_t smem = smem_bytes(d, 2, 1);
-  cudaError_t err = prepare(wide_paged_decode_kernel<T>, smem);
+  const auto kernel =
+      spills(d) ? wide_paged_decode_kernel<T, true> : wide_paged_decode_kernel<T, false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tokens, hkv, (hq / hkv + kRows - 1) / kRows);
-  wide_paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const int*>(slots), static_cast<const int*>(positions),
       static_cast<const int*>(block_tables), bt_stride, static_cast<T*>(out), hq, hkv, d, bs,
-      scale);
+      scale, spill);
   return cudaGetLastError();
 }
 
@@ -530,40 +581,45 @@ template <typename T>
 cudaError_t paged_prefill(const void* q, const void* k_pool, const void* v_pool,
                           const void* tile_slot, const void* tile_pos0, const void* tile_valid,
                           const void* block_tables, int bt_stride, void* out, int n_tiles,
-                          int hq, int hkv, int d, int bs, int ct, float scale,
+                          int hq, int hkv, int d, int bs, int ct, float scale, float* spill,
                           cudaStream_t stream) {
   const size_t smem = smem_bytes(d, 2, 1);
-  cudaError_t err = prepare(wide_paged_prefill_kernel<T>, smem);
+  const auto kernel =
+      spills(d) ? wide_paged_prefill_kernel<T, true> : wide_paged_prefill_kernel<T, false>;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles * ((ct + kRows - 1) / kRows), hq);
-  wide_paged_prefill_kernel<T><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const int*>(tile_slot), static_cast<const int*>(tile_pos0),
       static_cast<const int*>(tile_valid), static_cast<const int*>(block_tables), bt_stride,
-      static_cast<T*>(out), hq, hkv, d, bs, ct, scale);
+      static_cast<T*>(out), hq, hkv, d, bs, ct, scale, spill);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Every entry point: d a multiple of 8 above 256 and at most 1024; dtype 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// Every entry point: d a multiple of 8 above 256; dtype 0 = float32, 1 =
+// bfloat16. `spill`: above 1024, the row vectors' fp32 workspace, vecs x 8 x
+// d floats for each CTA of the launch (vecs: forward, decode and prefill 2,
+// dQ 3, dK/dV 4); null up to 1024. Returns a cudaError_t (0 = launched).
 
 // strides: element strides (batch, seq, head) of q, k, v, o in turn.
 extern "C" int dstpu_wide_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, const long long* strides, int b, int n_q,
                                     int n_kv, int hq, int hkv, int d, int causal, float scale,
-                                    int dtype, int device, void* stream) {
+                                    int dtype, int device, void* stream, void* spill) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad(d)) return (int)cudaErrorInvalidValue;
+  if (bad(d, spill)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(spill);
   if (dtype == 0)
     return (int)flash_fwd<float>(q, k, v, o, lse, strides, b, n_q, n_kv, hq, hkv, d, causal,
-                                 scale, s);
+                                 scale, ws, s);
   if (dtype == 1)
     return (int)flash_fwd<__nv_bfloat16>(q, k, v, o, lse, strides, b, n_q, n_kv, hq, hkv, d,
-                                         causal, scale, s);
+                                         causal, scale, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -572,17 +628,19 @@ extern "C" int dstpu_wide_flash_dkdv(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dk, void* dv, const long long* strides, int b,
                                      int n_q, int n_kv, int hq, int hkv, int d, int causal,
-                                     float scale, int dtype, int device, void* stream) {
+                                     float scale, int dtype, int device, void* stream,
+                                     void* spill) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad(d)) return (int)cudaErrorInvalidValue;
+  if (bad(d, spill)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(spill);
   if (dtype == 0)
     return (int)flash_dkdv<float>(q, k, v, dout, lse, delta, dk, dv, strides, b, n_q, n_kv, hq,
-                                  hkv, d, causal, scale, s);
+                                  hkv, d, causal, scale, ws, s);
   if (dtype == 1)
     return (int)flash_dkdv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, strides, b, n_q,
-                                          n_kv, hq, hkv, d, causal, scale, s);
+                                          n_kv, hq, hkv, d, causal, scale, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -591,17 +649,18 @@ extern "C" int dstpu_wide_flash_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, const long long* strides, int b, int n_q, int n_kv,
                                    int hq, int hkv, int d, int causal, float scale, int dtype,
-                                   int device, void* stream) {
+                                   int device, void* stream, void* spill) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad(d)) return (int)cudaErrorInvalidValue;
+  if (bad(d, spill)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(spill);
   if (dtype == 0)
     return (int)flash_dq<float>(q, k, v, dout, lse, delta, dq, strides, b, n_q, n_kv, hq, hkv,
-                                d, causal, scale, s);
+                                d, causal, scale, ws, s);
   if (dtype == 1)
     return (int)flash_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, strides, b, n_q, n_kv,
-                                        hq, hkv, d, causal, scale, s);
+                                        hq, hkv, d, causal, scale, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -610,17 +669,19 @@ extern "C" int dstpu_wide_paged_decode(const void* q, const void* k_pool, const 
                                        const void* slots, const void* positions,
                                        const void* block_tables, int bt_stride, void* out,
                                        int n_tokens, int hq, int hkv, int d, int bs, float scale,
-                                       int dtype, int device, void* stream) {
+                                       int dtype, int device, void* stream, void* spill) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad(d)) return (int)cudaErrorInvalidValue;
+  if (bad(d, spill)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(spill);
   if (dtype == 0)
     return (int)paged_decode<float>(q, k_pool, v_pool, slots, positions, block_tables,
-                                    bt_stride, out, n_tokens, hq, hkv, d, bs, scale, s);
+                                    bt_stride, out, n_tokens, hq, hkv, d, bs, scale, ws, s);
   if (dtype == 1)
     return (int)paged_decode<__nv_bfloat16>(q, k_pool, v_pool, slots, positions, block_tables,
-                                            bt_stride, out, n_tokens, hq, hkv, d, bs, scale, s);
+                                            bt_stride, out, n_tokens, hq, hkv, d, bs, scale, ws,
+                                            s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -630,19 +691,20 @@ extern "C" int dstpu_wide_paged_prefill(const void* q, const void* k_pool, const
                                         const void* tile_valid, const void* block_tables,
                                         int bt_stride, void* out, int n_tiles, int hq, int hkv,
                                         int d, int bs, int ct, float scale, int dtype,
-                                        int device, void* stream) {
+                                        int device, void* stream, void* spill) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (bad(d)) return (int)cudaErrorInvalidValue;
+  if (bad(d, spill)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(spill);
   if (dtype == 0)
     return (int)paged_prefill<float>(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid,
                                      block_tables, bt_stride, out, n_tiles, hq, hkv, d, bs, ct,
-                                     scale, s);
+                                     scale, ws, s);
   if (dtype == 1)
     return (int)paged_prefill<__nv_bfloat16>(q, k_pool, v_pool, tile_slot, tile_pos0,
                                              tile_valid, block_tables, bt_stride, out, n_tiles,
-                                             hq, hkv, d, bs, ct, scale, s);
+                                             hq, hkv, d, bs, ct, scale, ws, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,8 +18,9 @@ transposed. In fp32, and in bf16 at every other head dim, they run
 CUDA-core FMAs (fp32 checks at 1e-4 rule out TF32) compiled for the padded
 head dims 64, 128 and 256: loads zero-fill past the head dim and stores are
 masked to it. Above 256 the wide kernels run (``csrc/wide_head.cu``: one row
-a warp, the head dim streamed in 256-wide chunks). ``supports`` says which
-head dims the kernels take.
+a warp, the head dim streamed in 256-wide chunks; above 1024 a row's fp32
+vectors live in a workspace the wrapper allocates, ``wide_workspace``).
+``supports`` says which head dims the kernels take.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it computes the plain version. The plain versions compute the same
@@ -35,8 +36,8 @@ keys instead; the two agree when Sq == Skv, which training always has).
 Layouts: q, o, dO [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D] (Hq % Hkv == 0);
 lse [B, Hq, Sq] fp32. The kernels read q, k, v and dO through their strides
 (any batch, sequence and head strides, head dim contiguous), take fp32 or
-bf16 and every head dim the reference's Pallas kernels take up to 1024
-(``supports``), and handle any sequence length.
+bf16 and every head dim the reference's Pallas kernels take (``supports``),
+and handle any sequence length.
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, each
 plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
@@ -53,18 +54,32 @@ from deepspeed_tpu_torch.ops.cuda import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 1024
 WIDE_HEAD_DIM = 256  # above this head dim the wide kernels (csrc/wide_head.cu) run
+# above this head dim the wide kernels keep a CTA's row vectors in global memory
+WIDE_SHARED_HEAD_DIM = 1024
+WIDE_ROWS = 8  # rows a wide kernel's CTA owns, one a warp
 WGMMA_HEAD_DIMS = (64, 128)  # bf16 head dims the wgmma kernels serve
 
 
 def supports(d: int, dtype) -> bool:
     """Whether the kernels take head dim ``d`` in ``dtype``: fp32 or bf16,
-    ``d % 8 == 0`` (the reference's ``_supported``; every row a multiple of
-    16 bytes) and ``8 <= d <= 1024``. The reference takes larger head dims
-    too; here the wide kernels' shared rows (four [8][d] fp32 vectors in
-    dK/dV) bound d at 1024."""
-    return dtype in _DTYPES and d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
+    ``d % 8 == 0`` and ``d >= 8``, as the reference's ``_supported`` (every
+    row a multiple of 16 bytes)."""
+    return dtype in _DTYPES and d % 8 == 0 and d >= 8
+
+
+def wide_workspace(device, d: int, vectors: int, ctas: int) -> torch.Tensor | None:
+    """A wide kernel's fp32 row vectors above ``WIDE_SHARED_HEAD_DIM``, where
+    a CTA's would outgrow shared memory: ``vectors`` [8][d] arrays for each
+    of the launch's ``ctas`` CTAs (forward, decode, prefill 2; dQ 3; dK/dV
+    4). None at smaller head dims, whose vectors stay in shared memory."""
+    if d <= WIDE_SHARED_HEAD_DIM:
+        return None
+    return torch.empty(ctas * vectors * WIDE_ROWS * d, dtype=torch.float32, device=device)
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def reset_counts() -> None:
@@ -156,8 +171,8 @@ def _check(q, k, v, *others):
         raise TypeError(f"want float32 or bfloat16 q, k, v of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not supports(d, q.dtype):
-        raise ValueError(f"flash attention kernels take head dims d % 8 == 0, 8 <= d <= "
-                         f"{MAX_HEAD_DIM}; got {d}")
+        raise ValueError(f"flash attention kernels take head dims d % 8 == 0, d >= 8; "
+                         f"got {d}")
     vec = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v), *others):
         if x.device != q.device:
@@ -208,11 +223,12 @@ def _fn(lib_name: str, symbol: str, n_ptr: int):
 def wide_fn(symbol: str, n_ptr: int):
     """An entry point of ``csrc/wide_head.cu``, the kernels of head dims
     above ``WIDE_HEAD_DIM``: ``n_ptr`` pointers, 7 ints, the scale, dtype,
-    device and stream (the paged entry points set their own argtypes)."""
+    device, stream and row-vector workspace (``wide_workspace``; the paged
+    entry points set their own argtypes)."""
     fn = getattr(_build.load("wide_head"), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * n_ptr + [i] * 7 + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * n_ptr + [i] * 7 + [ctypes.c_float, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -240,10 +256,11 @@ def flash_attention_fwd(q, k, v, causal: bool = True, scale: float | None = None
     if o.numel() == 0:
         return o, lse
     if d > WIDE_HEAD_DIM:
+        ws = wide_workspace(q.device, d, 2, -(-sq // WIDE_ROWS) * hq * b)
         rc = wide_fn("dstpu_wide_flash_fwd", 6)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, o), b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale),
-            _DTYPES[q.dtype], dev, _stream(q))
+            _DTYPES[q.dtype], dev, _stream(q), _ptr(ws))
     else:
         rc = _fn("flash_fwd", "dstpu_flash_fwd", 6)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -286,7 +303,8 @@ def flash_attention_dkdv(q, k, v, do, lse, delta, causal: bool = True,
     sizes = (b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
              _stream(q))
     if d > WIDE_HEAD_DIM:
-        rc = wide_fn("dstpu_wide_flash_dkdv", 9)(*ptrs, *sizes)
+        ws = wide_workspace(q.device, d, 4, -(-skv // WIDE_ROWS) * hkv * b)
+        rc = wide_fn("dstpu_wide_flash_dkdv", 9)(*ptrs, *sizes, _ptr(ws))
     else:
         rc = _fn("flash_bwd", "dstpu_flash_dkdv", 9)(*ptrs, kernel_layouts(q, k, v, do), *sizes)
     if rc:
@@ -312,7 +330,8 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True,
     sizes = (b, sq, skv, hq, hkv, d, int(causal), _scale(q, scale), _DTYPES[q.dtype], dev,
              _stream(q))
     if d > WIDE_HEAD_DIM:
-        rc = wide_fn("dstpu_wide_flash_dq", 8)(*ptrs, *sizes)
+        ws = wide_workspace(q.device, d, 3, -(-sq // WIDE_ROWS) * hq * b)
+        rc = wide_fn("dstpu_wide_flash_dq", 8)(*ptrs, *sizes, _ptr(ws))
     else:
         rc = _fn("flash_bwd", "dstpu_flash_dq", 8)(*ptrs, kernel_layouts(q, k, v, do), *sizes)
     if rc:

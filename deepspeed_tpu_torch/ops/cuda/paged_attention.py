@@ -15,7 +15,8 @@ path and the oracle the kernels are held against on the card.
 
 The kernels take fp32 or bf16 pools and every head dim ``supports`` allows;
 above 256 both wrappers launch the wide kernels of ``csrc/wide_head.cu``
-(one query row a warp, the head dim streamed in 256-wide chunks).
+(one query row a warp, the head dim streamed in 256-wide chunks; above 1024
+the rows' fp32 vectors in a workspace the wrapper allocates).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and each
 plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
@@ -31,9 +32,9 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import _build
 # the paged kernels take the flash kernels' head dims: d % 8 == 0 (rows of
-# 16 bytes), 8 <= d <= 1024, fp32 or bf16
-from deepspeed_tpu_torch.ops.cuda.flash_attention import (MAX_HEAD_DIM,  # noqa: F401
-                                                          WIDE_HEAD_DIM, supports)
+# 16 bytes), d >= 8, fp32 or bf16
+from deepspeed_tpu_torch.ops.cuda.flash_attention import (WIDE_HEAD_DIM, WIDE_ROWS, _ptr,
+                                                          supports, wide_workspace)
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,8 +143,7 @@ def _check_pools(q, k_pool, v_pool):
     if k_pool.shape[3] != d or hq % hkv:
         raise ValueError(f"head dims disagree: q {tuple(q.shape)}, pool {tuple(k_pool.shape)}")
     if not supports(d, q.dtype):
-        raise ValueError(f"head dim {d}: the kernels take head dims d % 8 == 0, "
-                         f"8 <= d <= {MAX_HEAD_DIM}")
+        raise ValueError(f"head dim {d}: the kernels take head dims d % 8 == 0, d >= 8")
 
 
 def _meta(x, n: int, device, name: str):
@@ -233,12 +233,12 @@ class DecodeWorkspace:
 def _wide_lib(symbol: str, n_int: int):
     """A paged entry point of ``csrc/wide_head.cu``: the pools' and
     metadata's pointers, the table's row stride, the output, ``n_int``
-    sizes, the scale, dtype, device and stream."""
+    sizes, the scale, dtype, device, stream and row-vector workspace."""
     fn = getattr(_build.load("wide_head"), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         n_ptr = 6 if symbol.endswith("decode") else 7
-        fn.argtypes = [p] * n_ptr + [i, p] + [i] * n_int + [ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * n_ptr + [i, p] + [i] * n_int + [ctypes.c_float, i, i, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -288,11 +288,12 @@ def paged_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if d > WIDE_HEAD_DIM:
+        ws = wide_workspace(q.device, d, 2, t * hkv * -(-(hq // hkv) // WIDE_ROWS))
         rc = _wide_lib("dstpu_wide_paged_decode", 5)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), slots.data_ptr(),
             positions.data_ptr(), bt.data_ptr(), bt.stride(0), out.data_ptr(), t, hq, hkv, d,
             bs, scale, _DTYPES[q.dtype], q.device.index or 0,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, _ptr(ws))
         if rc:
             raise RuntimeError(f"wide paged_decode kernel launch failed: cudaError_t {rc}")
         paged_decode_attention.launches += 1
@@ -351,13 +352,16 @@ def ragged_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0,
     if nt == 0:
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    launch = (_wide_lib("dstpu_wide_paged_prefill", 6) if d > WIDE_HEAD_DIM
-              else _prefill_lib())
+    wide = d > WIDE_HEAD_DIM
+    # held until the launch: the kernel writes it
+    ws = wide_workspace(q.device, d, 2, nt * -(-tile // WIDE_ROWS) * hq) if wide else None
+    launch = _wide_lib("dstpu_wide_paged_prefill", 6) if wide else _prefill_lib()
     rc = launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tile_slot.data_ptr(),
         tile_pos0.data_ptr(), tile_valid.data_ptr(), bt.data_ptr(), bt.stride(0),
         out.data_ptr(), nt, hq, hkv, d, bs, tile, scale, _DTYPES[q.dtype],
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        *((_ptr(ws),) if wide else ()))
     if rc:
         raise RuntimeError(f"paged_prefill kernel launch failed: cudaError_t {rc}")
     ragged_prefill_attention.launches += 1

@@ -26,7 +26,8 @@ STALE = 1 << 30  # a block id no pool has: reading it faults
 # a GQA rep=4 case, the tiny engine of tests/test_torch_ragged.py, Llama-3-8B;
 # then GQA rep 1 and 8 and the head dims besides 64 and 128 that the
 # reference's kernels take (16, 80, 96, 256, and above 256 the wide kernels'
-# 264, 384 and 512)
+# 264, 384 and 512, and above 1024, their rows in a global workspace, 1032
+# and 2048)
 SHAPES = {
     "unit_layout": (4, 2, 16, 16, 8, 4),
     "gqa4_d128": (8, 2, 128, 64, 32, 8),
@@ -40,6 +41,8 @@ SHAPES = {
     "gqa4_d264": (8, 2, 264, 64, 16, 8),
     "rep8_d384": (16, 2, 384, 64, 16, 8),
     "gqa4_d512": (8, 2, 512, 64, 16, 8),
+    "gqa4_d1032": (8, 2, 1032, 64, 16, 8),
+    "rep8_d2048": (16, 2, 2048, 64, 16, 8),
 }
 # fp32 kernel vs fp32 plain: summation order only; bf16: both round the
 # output to bf16 (one ulp at |x| ~ 1 is 2**-7) from the same bf16 inputs
@@ -270,10 +273,13 @@ FLASH_SHAPES = {
     "mha_d80": (1, 130, 130, 4, 4, 80),
     "short_q_d96": (1, 64, 192, 4, 2, 96),
     "gqa8_d256": (1, 300, 300, 16, 2, 256),
-    # the wide kernels (head dims above 256, streamed in 256-wide chunks)
+    # the wide kernels (head dims above 256, streamed in 256-wide chunks;
+    # above 1024 their rows in a global workspace)
     "gqa4_d264": (2, 100, 100, 8, 2, 264),
     "short_q_d384": (1, 64, 192, 4, 2, 384),
     "long_q_d512": (1, 130, 70, 8, 2, 512),
+    "gqa4_d1032": (1, 100, 100, 8, 2, 1032),
+    "short_q_d2048": (1, 64, 192, 4, 2, 2048),
 }
 
 
@@ -369,16 +375,17 @@ def test_flash_autograd_matches_eager_attention(cuda):
 
 
 def test_flash_kernels_reject_what_they_do_not_take(cuda):
-    """Head dims off the 8-grid or above 1024 raise before any launch; 96,
-    which the reference takes, is computed."""
-    for d in (12, 1032):
-        q, k, v, do = _flash_case((1, 64, 64, 4, 2, d), torch.float32, cuda)
-        with pytest.raises(ValueError, match="head dims"):
-            fa.flash_attention_fwd(q, k, v)
+    """Head dims off the 8-grid raise before any launch; 96 and 1032, which
+    the reference takes, are computed."""
+    q, k, v, do = _flash_case((1, 64, 64, 4, 2, 12), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_fwd(q, k, v)
     assert fa.flash_attention_fwd.launches == 0
-    q, k, v, do = _flash_case((1, 64, 64, 4, 2, 96), torch.float32, cuda)
-    o, _ = fa.flash_attention_fwd(q, k, v)
-    torch.testing.assert_close(o, fa.flash_attention_fwd_ref(q, k, v)[0], atol=1e-4, rtol=1e-4)
+    for d in (96, 1032):
+        q, k, v, do = _flash_case((1, 64, 64, 4, 2, d), torch.float32, cuda)
+        o, _ = fa.flash_attention_fwd(q, k, v)
+        torch.testing.assert_close(o, fa.flash_attention_fwd_ref(q, k, v)[0], atol=1e-4,
+                                   rtol=1e-4)
     fa.reset_counts()
     q, k, v, do = _flash_case((1, 64, 64, 4, 2, 64), torch.float32, cuda)
     with pytest.raises(TypeError):
@@ -417,7 +424,9 @@ ENGINE_CFG = dict(vocab_size=97, hidden_size=32, intermediate_size=64, num_layer
                   num_heads=4, num_kv_heads=2, max_seq_len=128)
 ENGINE_RCFG = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=49,
                    max_blocks_per_seq=16)
-GRAPH_MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4}}
+GRAPH_MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4},
+               "fused": {"fused_chunk": 4, "pipeline_depth": 3},
+               "fused_tiled": {"fused_chunk": 4, "pipeline_depth": 3, "prefill_tile": 8}}
 
 
 def _graph_engine(mode, dtype, graphs: bool):
@@ -452,14 +461,16 @@ def _graph_run(mode, dtype, graphs: bool, max_new=24):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("mode", list(GRAPH_MODES))
 def test_graphs_replay_bit_identical_to_eager(cuda, mode, dtype):
-    """The captured steps (and, with run-ahead, chunks) replay bit for bit
-    what the same programs compute eagerly on the same inputs: the same
-    tokens and the same KV pool."""
+    """The captured steps (and, with run-ahead, chunks; with fused chunks,
+    every fused program, mixed ones too) replay bit for bit what the same
+    programs compute eagerly on the same inputs: the same tokens and the
+    same KV pool."""
     out_g, cache_g, _, eng = _graph_run(mode, dtype, graphs=True)
     out_e, cache_e, _, ref = _graph_run(mode, dtype, graphs=False)
     assert eng.programs.replays > 0 and ref.programs.replays == 0
     kinds = {key[0] for key in eng.programs._graphs}
-    assert kinds == ({"step", "chunk"} if mode == "run_ahead" else {"step"})
+    assert kinds == {"run_ahead": {"step", "chunk"}, "fused": {"fused"},
+                     "fused_tiled": {"fused"}}.get(mode, {"step"})
     assert out_g == out_e
     assert torch.equal(cache_g["k"], cache_e["k"]) and torch.equal(cache_g["v"], cache_e["v"])
     assert eng.allocator.free_blocks == ENGINE_RCFG["num_blocks"] - 1
@@ -515,3 +526,54 @@ def test_launch_counters_advance_per_replay(cuda, mode):
     assert eng.programs.replays > 0
     assert launches_g == launches_e
     assert pa.paged_decode_attention_ref.calls == pa.ragged_prefill_attention_ref.calls == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mixed_fused_program_replays_bit_identical(cuda, dtype):
+    """chip_smoke.py's fused program check on a tiny model at the serving
+    cell's engine sizes: one mixed fused program (two prefill tiles, a
+    16-step decode scan with full, frozen and retired rows) captured and
+    replayed gives the bits of its eager run (the live rows' tokens, the KV
+    pool past scratch block 0, the slot rows but the scratch row), and
+    writes the KV of exactly the rows and steps it schedules."""
+    import chip_smoke
+    from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
+                                RaggedConfig(**chip_smoke.ENGINE, **chip_smoke.FUSED),
+                                dtype=dtype, seed=0)
+    res = chip_smoke.fused_program_check(torch, np, eng)
+    assert res["graph_replays"] == 1 and res["bit_identical"], res
+    assert res["kv_rows_written_outside_schedule"] == res["kv_rows_missing"] == 0, res
+    assert res["frozen_and_retired_rows_surface_minus_one"], res
+    assert pa.paged_decode_attention_ref.calls == pa.ragged_prefill_attention_ref.calls == 0
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_tiled"])
+def test_warmup_then_serving_only_replays(cuda, mode):
+    """After warmup() every dispatch of a run replays a graph (no capture,
+    no eager run), the decode kernel (and with tiles the prefill kernel)
+    launches inside replays, and tokens and launch counts equal those of
+    the same engine run eagerly."""
+    eng = _graph_engine(mode, torch.float32, graphs=True)
+    assert eng.warmup() > 0
+    captures, eager = eng.programs.captures, eng.programs.eager_runs
+    assert captures == eng.programs.graphs > 0
+    rng = np.random.default_rng(11)
+    prompts = {f"r{i}": rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist()
+               for i, n in enumerate((3, 4, 5, 8, 9, 13, 17))}
+    pa.reset_counts()
+    replayed = list(eng.programs.replayed)
+    for uid, p in prompts.items():
+        eng.put(uid, p, max_new_tokens=24)
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    launches = (pa.paged_decode_attention.launches, pa.ragged_prefill_attention.launches)
+    assert (eng.programs.captures, eng.programs.eager_runs) == (captures, eager)
+    assert eng.programs.replays == eng.dispatch_count
+    in_replays = [a - b for a, b in zip(eng.programs.replayed, replayed)]
+    assert in_replays[0] > 0 and (in_replays[1] > 0) == (mode == "fused_tiled")
+    assert launches == tuple(in_replays[:2])
+    out_e, _, launches_e, _ = _graph_run(mode, torch.float32, graphs=False)
+    assert out == out_e and launches == launches_e

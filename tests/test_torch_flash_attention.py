@@ -19,6 +19,7 @@ from deepspeed_tpu.ops.attention import xla_attention
 from deepspeed_tpu.ops.pallas.flash_attention import (
     _flash_bwd_pallas,
     _flash_fwd,
+    _supported,
     flash_attention as jax_flash_attention,
 )
 from deepspeed_tpu_torch.ops import attention as tattn
@@ -173,9 +174,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fa.flash_attention_fwd(tq, tk, tv)
     with pytest.raises(ValueError, match="head dims"):
         fa._check(tq, tk, tv)
-    tq, tk, tv = (torch.empty(1, 8, 2, 1032, device="meta") for _ in range(3))
-    with pytest.raises(ValueError, match="head dims"):
-        fa._check(tq, tk, tv)
+    for d in (1032, 4096):  # no upper limit: above 1024 the rows go to a workspace
+        fa._check(*(torch.empty(1, 8, 2, d, device="meta") for _ in range(3)))
     q, k, v, _ = _inputs(d=64)
     tq, tk, tv = _t(q, k, v)
     with pytest.raises(TypeError):
@@ -225,12 +225,27 @@ def test_kernel_layouts_give_the_bf16_kernels_one_map_per_tensor():
 # ------------------------------------------------------------ head dims
 @pytest.mark.parametrize("module", [fa, pa], ids=["flash", "paged"])
 def test_supports_takes_the_reference_head_dims(module):
-    """The kernels take what the reference's Pallas kernels take (``d % 8 ==
-    0``) from 8 up to 1024 (above 256 on the wide kernels), in fp32 and
-    bf16; above 1024, or off the 8-grid, they refuse."""
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in (8, 16, 80, 96, 256, 264, 384, 512, 1024):
-            assert module.supports(d, dtype), (d, dtype)
-        for d in (12, 1032):
-            assert not module.supports(d, dtype), (d, dtype)
+    """The kernels take every head dim the reference's Pallas kernels take
+    (``_supported``: ``d % 8 == 0``), here from 1 to 4096 (above 256 on the
+    wide kernels, above 1024 with their rows in a workspace), in fp32 and
+    bf16; off the 8-grid they refuse."""
+    class Shape:  # _supported reads shapes only: [B, S, H, D]
+        def __init__(self, *shape):
+            self.shape = shape
+
+    for d in range(1, 4097):
+        want = _supported(Shape(1, 64, 4, d), Shape(1, 64, 2, d), BLOCK, BLOCK)
+        assert want == (d % 8 == 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            assert module.supports(d, dtype) == want, (d, dtype)
     assert not module.supports(64, torch.float16)
+
+
+def test_wide_workspace_holds_the_rows_above_1024():
+    """Up to 1024 the wide kernels keep a CTA's row vectors in shared memory
+    and take no workspace; above it, ``vectors`` fp32 [8][d] arrays for
+    each CTA."""
+    assert fa.wide_workspace("cpu", 1024, 4, 10) is None
+    for d, vectors, ctas in ((1032, 2, 7), (2048, 4, 3), (4096, 3, 1)):
+        ws = fa.wide_workspace("cpu", d, vectors, ctas)
+        assert ws.dtype == torch.float32 and ws.numel() == ctas * vectors * 8 * d

@@ -1,9 +1,10 @@
-"""The port's device-resident serving path and decode run-ahead against the
-JAX engine, on the CPU: fp32, the tiny Llama and ``RaggedConfig`` of
-tests/test_torch_ragged.py, the same weights on both sides
-(``models/convert.params_from_numpy``), greedy tokens identical, in the
-plain, tiled and run-ahead modes with ``device_state`` True and False on
-each side (tests/unit/test_ragged.py:91,122,327). Then the device path's
+"""The port's device-resident serving path, decode run-ahead and fused mixed
+chunks against the JAX engine, on the CPU: fp32, the tiny Llama and
+``RaggedConfig`` of tests/test_torch_ragged.py, the same weights on both
+sides (``models/convert.params_from_numpy``), greedy tokens identical, in
+the plain, tiled, run-ahead and fused (flat and tiled) modes with
+``device_state`` True and False on each side
+(tests/unit/test_ragged.py:91,122,305-310,327). Then the device path's
 own contracts, each a port of one test of
 tests/unit/test_ragged.py's ``TestDeviceResidentState``: steady decode
 stages nothing, readback runs one dispatch behind, cancel and deadlines in
@@ -26,9 +27,11 @@ from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEn
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 
-# the dispatch modes of tests/unit/test_ragged.py's DISPATCH_MODES that are
-# ported (the fused mode is not)
-MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4}}
+# tests/unit/test_ragged.py's DISPATCH_MODES, and the fused mode with tiled
+# prefill
+MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4},
+         "fused": {"fused_chunk": 4, "pipeline_depth": 2},
+         "fused_tiled": {"fused_chunk": 4, "pipeline_depth": 2, "prefill_tile": 8}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,7 +70,7 @@ def _run(eng, requests, max_new=MAX_NEW, **put):
 def _leak_free(eng):
     return (eng.allocator.free_blocks == eng.cfg.num_blocks - 1 and eng._reserved == 0
             and len(eng._free_slots) == eng.cfg.max_seqs and not eng._running
-            and not eng._pending and not eng.block_tables.any())
+            and not eng._pending and not eng._inflight_chunks and not eng.block_tables.any())
 
 
 @pytest.mark.parametrize("device_state", [True, False], ids=["device", "host"])
@@ -84,7 +87,9 @@ def test_greedy_tokens_identical_to_jax(np_params, mode, device_state):
     assert [peng.dispatch_count, peng.tokens_scheduled, peng.tokens_padded] == schedule
     if device_state:
         assert peng.h2d_bytes == h2d
-        assert ("chunk" in {key[0] for key in peng.programs._seen}) == (mode == "run_ahead")
+        kinds = {key[0] for key in peng.programs._seen}
+        assert ("chunk" in kinds) == (mode == "run_ahead")
+        assert kinds == {"fused"} if mode.startswith("fused") else "fused" not in kinds
     assert _leak_free(peng)
 
 
@@ -128,7 +133,8 @@ def test_cancel_mid_flight_with_pending_dispatch(np_params, mode):
     """cancel() while a dispatch that references the sequence is in flight:
     it retires through the deferred release, its blocks and slot are
     recycled, and the other request's tokens are those of a run without
-    it. Both prompts complete in the first dispatch, so it references both."""
+    it. Both prompts complete in the first dispatch, so it references both
+    (fused: the second chunk of the first window, still in flight)."""
     want = None
     for with_cancel in (False, True):
         eng = _engine(np_params, **MODES[mode])
@@ -138,7 +144,7 @@ def test_cancel_mid_flight_with_pending_dispatch(np_params, mode):
             eng.put("dead", reqs["r1"], max_new_tokens=8)
         eng.step()  # a dispatch in flight referencing both
         if with_cancel:
-            assert eng._pending and eng.get_request("dead").refs == 1
+            assert (eng._pending or eng._inflight_chunks) and eng.get_request("dead").refs == 1
             assert eng.cancel("dead")
             eng._sweep_aborts()  # the release waits for the dispatch in flight
             assert eng.get_request("dead").slot >= 0

@@ -38,20 +38,23 @@ def requests(seed=11, lens=PROMPT_LENS) -> dict:
             for i, n in enumerate(lens)}
 
 
-def jax_reference(prefill_tile=0, decode_run_ahead=0, device_state=True):
+def jax_reference(prefill_tile=0, decode_run_ahead=0, device_state=True, fused_chunk=0,
+                  pipeline_depth=2):
     """The JAX engine's run of ``requests()`` (``MAX_NEW`` tokens each) in
     one mode: (tokens by uid, dispatches, scheduled tokens, padded tokens,
     H2D bytes)."""
-    return _jax_reference(prefill_tile, decode_run_ahead, device_state)
+    return _jax_reference(prefill_tile, decode_run_ahead, device_state, fused_chunk,
+                          pipeline_depth)
 
 
 @functools.cache
-def _jax_reference(prefill_tile, decode_run_ahead, device_state):
+def _jax_reference(prefill_tile, decode_run_ahead, device_state, fused_chunk, pipeline_depth):
     jcfg = jax_llama.LlamaConfig(**CFG)
     eng = jax_ragged.RaggedInferenceEngine(
         lambda ctx: jax_llama.build(jcfg, ctx=ctx),
         jax_ragged.RaggedConfig(**RCFG, prefill_tile=prefill_tile,
-                                decode_run_ahead=decode_run_ahead, device_state=device_state),
+                                decode_run_ahead=decode_run_ahead, device_state=device_state,
+                                fused_chunk=fused_chunk, pipeline_depth=pipeline_depth),
         dtype=jnp.float32, params=jax.tree_util.tree_map(jnp.asarray, np_params()))
     for uid, prompt in requests().items():
         eng.put(uid, prompt, max_new_tokens=MAX_NEW)
