@@ -44,7 +44,17 @@ the package's is not touched):
   fp32), and how many graphs each replayed;
 - ``fused_program_fp32``: chip_smoke.py's fused program check on a fused
   engine of that 2-layer fp32 model: replay vs eager bit-identical, and KV
-  rows written outside the rows and steps the program schedules (limit 0).
+  rows written outside the rows and steps the program schedules (limit 0);
+- ``parity_sched_fp32``: whether the scheduler engines' greedy tokens (the
+  device and fused paths with ``sched_steps`` 16, without and with
+  ``spec_draft`` 4) equal the host-staged engine's, same run;
+- ``sched_program_fp32``: chip_smoke.py's scheduler program check on a
+  scheduler engine of that model: replay vs eager bit-identical, steps as
+  the probe predicts, iterations against the deepest row's steps (must be
+  equal), KV rows outside the positions fed (limit 0), and the iterations
+  of the full (16), early-exit (at most 3) and all-retired (0) replays.
+  The speculation mutant edits ``inference/sampling.py``; the engine module
+  is then loaded anew with its imported names bound to the edited ones.
 
 Run from the repository root:
 
@@ -158,7 +168,35 @@ PY_MUTANTS = {
     # by the time the chunk is reconciled
     "fused_output_not_copied": ("deepspeed_tpu_torch.inference.ragged",
                                 '"out": self._readback(packed)', '"out": (packed, None)'),
+    # a scheduler row that retired (EOS or budget) keeps its lanes on its
+    # own slot: it writes KV past the tokens it surfaced
+    "sched_retired_row_not_masked": (
+        "deepspeed_tpu_torch.inference.ragged",
+        "speculative_lane_layout(toks, draft, pos, live, cap, slots,",
+        "speculative_lane_layout(toks, draft, pos, real, cap, slots,"),
+    # the loop's predicate is taken before the iteration's retirements
+    # update ``done``: the exit is off by one iteration (the loop runs one
+    # past the iteration where its last row retired)
+    "sched_exit_one_iteration_early": (
+        "deepspeed_tpu_torch.inference.ragged",
+        "            done.copy_(done | ((eos >= 0) & (last == eos) & (n_emit > 0)) | (emitted >= bud))\n"
+        "            counts[:2].add_(torch.stack([torch.where(live, d, 0).sum(), n_acc.sum()])\n"
+        "                            .to(torch.int32))\n"
+        "            counts[2:].add_(1)\n"
+        "            pred.copy_((~done).any())\n",
+        "            pred.copy_((~done).any())\n"
+        "            done.copy_(done | ((eos >= 0) & (last == eos) & (n_emit > 0)) | (emitted >= bud))\n"
+        "            counts[:2].add_(torch.stack([torch.where(live, d, 0).sum(), n_acc.sum()])\n"
+        "                            .to(torch.int32))\n"
+        "            counts[2:].add_(1)\n"),
+    # acceptance counts the first mismatching draft lane as accepted
+    "spec_accepts_one_past_mismatch": (
+        "deepspeed_tpu_torch.inference.sampling",
+        "a = torch.where(draft != picked[:, :d], lane_i[:, :d], d).amin(dim=1) if d else",
+        "a = torch.clamp(torch.where(draft != picked[:, :d], lane_i[:, :d], d).amin(dim=1) + 1,"
+        " max=d) if d else"),
 }
+RAGGED = "deepspeed_tpu_torch.inference.ragged"
 # the kernels each source is compiled into
 BUILT_FROM = {"paged_decode.cu": ("paged_decode",),
               "paged_prefill.cu": ("paged_prefill",),
@@ -207,21 +245,36 @@ def build_variants(build) -> tuple[dict[str, dict[str, ctypes.CDLL]], list[Path]
     return libs, list(dirs.values())
 
 
-def mutant_module(tag: str):
-    """The module of ``PY_MUTANTS[tag]`` with its edit, loaded under a name
-    of its own (the real module stays as it is)."""
+def _load_edited(name: str, tag: str, old: str = "", new: str = ""):
+    """Module ``name`` with ``old`` replaced by ``new`` (once), loaded under a
+    name of its own (the real module stays as it is)."""
     import importlib
 
-    name, old, new = PY_MUTANTS[tag]
     real = importlib.import_module(name)
     text = Path(real.__file__).read_text()
-    if text.count(old) != 1:
+    if old and text.count(old) != 1:
         raise AssertionError(f"mutant {tag}: {old!r} is not once in {name}")
     mod = types.ModuleType(f"{name}_mutant_{tag}")
     mod.__file__ = real.__file__
     sys.modules[mod.__name__] = mod  # dataclasses look their module up
-    exec(compile(text.replace(old, new), f"{real.__file__} ({tag})", "exec"), mod.__dict__)
-    return mod
+    exec(compile(text.replace(old, new) if old else text, f"{real.__file__} ({tag})", "exec"),
+         mod.__dict__)
+    return mod, real
+
+
+def mutant_module(tag: str):
+    """The ragged engine module with ``PY_MUTANTS[tag]``'s edit: the edited
+    module itself, or a copy of the engine module whose names imported from
+    the edited module are the edited ones."""
+    name, old, new = PY_MUTANTS[tag]
+    mod, real = _load_edited(name, tag, old, new)
+    if name == RAGGED:
+        return mod
+    eng, _ = _load_edited(RAGGED, tag + "_engine")
+    for attr, value in vars(real).items():
+        if callable(value) and eng.__dict__.get(attr) is value:
+            eng.__dict__[attr] = getattr(mod, attr)
+    return eng
 
 
 def use(build, libs: dict[str, ctypes.CDLL]) -> None:
@@ -340,6 +393,8 @@ def main() -> int:
                 k: res[k] for k in ("device_tokens_identical", "run_ahead_tokens_identical",
                                     "fused_device_tokens_identical",
                                     "fused_host_staged_tokens_identical", "graph_replays")}
+            row["parity_sched_fp32"] = {name: v["tokens_identical"]
+                                        for name, v in res["sched"].items()}
             eng = mod.RaggedInferenceEngine(llama.build(cfg2),
                                             mod.RaggedConfig(**smoke.ENGINE, **smoke.FUSED),
                                             dtype=torch.float32, seed=1)
@@ -348,6 +403,16 @@ def main() -> int:
                 k: res[k] for k in ("bit_identical", "kv_rows_written_outside_schedule",
                                     "kv_rows_missing",
                                     "frozen_and_retired_rows_surface_minus_one")}
+            del eng
+            eng = mod.RaggedInferenceEngine(llama.build(cfg2),
+                                            mod.RaggedConfig(**smoke.ENGINE, **smoke.SCHED),
+                                            dtype=torch.float32, seed=1)
+            res = smoke.sched_program_check(torch, np, eng)
+            row["sched_program_fp32"] = {
+                k: res[k] for k in ("bit_identical", "steps_as_probed", "iterations",
+                                    "deepest_row_steps", "kv_rows_written_outside_schedule",
+                                    "kv_rows_missing", "full_iterations",
+                                    "early_exit_iterations", "all_retired_iterations")}
             del eng
             torch.cuda.empty_cache()
         for row in rows.values():

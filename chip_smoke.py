@@ -11,7 +11,8 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    nvcc (one process per source, in parallel), with ptxas' registers,
    shared memory and spills;
 3. kernels: each paged-attention kernel against its plain PyTorch version
-   at the 8B serving shapes, and each flash-attention kernel (forward,
+   at the 8B serving shapes (decode also on a speculative verify batch of
+   32 sequences x 5 consecutive positions), and each flash-attention kernel (forward,
    dK/dV, dQ) at the training shapes (B=2, S=4096, Hq=32, Hkv=8, D=128,
    causal), in bf16 and fp32; then timed beside its bound, its plain
    version and a library yardstick (SDPA, which the port never calls; the
@@ -38,9 +39,10 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    (graph replays, eager dispatches, H2D bytes in all and in steady decode,
    launches counted per replay), then a profiled run;
 5b. parity_device: greedy tokens of the device-resident engine, with and
-   without run-ahead, and of the fused engine on the device path and on
-   the host-staged path, against the host-staged engine (fp32, 2 layers at
-   full width), and one captured decode-step graph of the 32-layer bf16
+   without run-ahead, of the fused engine on the device path and on the
+   host-staged path, and (parity_sched) of the device and fused paths with
+   the scheduler, without and with speculation, against the host-staged
+   engine (fp32, 2 layers at full width), and one captured decode-step graph of the 32-layer bf16
    model against ``llama.ragged_forward`` called eagerly;
 5c. engine_fused: the same workload on the reference bench's own serving
    configuration (``bench.py:serve_trial_main``): fused mixed chunks of 16
@@ -51,6 +53,15 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    scan, 32 layers, bf16) captured and replayed against the same program
    run eagerly from the same state, and the KV it writes held to the rows
    and steps it schedules;
+5d. engine_sched: the same configuration with the multi-step scheduler
+   (``sched_steps=16``): ``warmup()`` captures the fused and scheduler
+   families, every all-decode turn is one scheduler program whose
+   iterations sit under CUDA graph conditional nodes; the JAX engine's
+   schedule; a profiled run; then ``sched_program_check``: one 32-layer
+   scheduler program captured and replayed against its eager run, its KV
+   writes held to what it fed, and its early exit timed;
+5e. engine_spec: the same with self-speculative decoding (``spec_draft=4``),
+   its acceptance and its streams beside engine_sched's;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -905,6 +916,20 @@ FUSED = dict(device_state=True, decode_run_ahead=RUN_AHEAD, fused_chunk=FUSED_CH
 # size; tests/test_torch_ragged_fused.py holds both engines to them
 FUSED_SCHEDULE = (12, 9216, 4608)
 FUSED_WARMUP_PROGRAMS = 29
+# the multi-step scheduler on top (bench.py's serve probe sweeps
+# sched_steps over {0, 8, 16} and spec_draft over {0, 4},
+# deepspeed_tpu/autotuning/knobs.py:159,169), and self-speculation
+SCHED_STEPS, SPEC_DRAFT, SPEC_NGRAM = 16, 4, 3
+SCHED = dict(FUSED, sched_steps=SCHED_STEPS)
+SPEC = dict(SCHED, spec_draft=SPEC_DRAFT, spec_ngram=SPEC_NGRAM)
+# the JAX engine's schedule of the workload at ENGINE + SCHED (dispatches,
+# scheduled tokens, padded tokens), the port's split of its dispatches into
+# fused chunks and scheduler programs, and the warmup family's size (fused
+# and scheduler programs); tests/test_torch_ragged_sched.py holds both
+# engines to them
+SCHED_SCHEDULE = (15, 9206, 3526)
+SCHED_DISPATCHES = (9, 6)
+SCHED_WARMUP_PROGRAMS = 49
 
 
 def engine_counters(eng) -> dict:
@@ -1068,31 +1093,42 @@ def graph_vs_eager(torch, np, llama, eng) -> dict:
                 top1_identical=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
 
 
+SCHED_PARITY = (("device_sched", dict(device_state=True, sched_steps=SCHED_STEPS)),
+                ("device_spec", dict(device_state=True, sched_steps=SCHED_STEPS,
+                                     spec_draft=SPEC_DRAFT, spec_ngram=SPEC_NGRAM)),
+                ("fused_sched", SCHED), ("fused_spec", SPEC))
+
+
 def parity_device(torch, np, llama, ragged) -> dict:
     """2 of Llama-3-8B's 32 layers at full width, fp32: greedy tokens of 8
     requests x 48 new tokens through the device-resident engine, without
-    and with run-ahead 48, and through the fused engine (``FUSED``) on the
-    device path and on the host-staged path, against the host-staged
-    engine. Each engine serves the requests twice: the first run captures
-    each program of the device path at its first dispatch (without fused
-    chunks: each decode-only program), the second replays them all."""
+    and with run-ahead 48, through the fused engine (``FUSED``) on the
+    device path and on the host-staged path, and through the scheduler
+    engines (``SCHED_PARITY``: the device path and the fused path with
+    ``sched_steps`` 16, each without and with ``spec_draft`` 4), against the
+    host-staged engine. Each engine serves the requests twice: the first run
+    captures each program of the device path at its first dispatch (without
+    fused chunks: each decode-only program), the second replays them all."""
     cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
     params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                                torch.float32, "cuda")
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
                for n in (40, 64, 100, 33, 150, 7, 80, 129)]
-    toks, replays = {}, {}
+    toks, replays, sched = {}, {}, {}
     for name, over in (("host_staged", dict(device_state=False)),
                        ("device", dict(device_state=True)),
                        ("device_run_ahead", dict(device_state=True,
                                                  decode_run_ahead=RUN_AHEAD)),
                        ("fused_device", FUSED),
-                       ("fused_host_staged", dict(FUSED, device_state=False))):
+                       ("fused_host_staged", dict(FUSED, device_state=False)),
+                       *SCHED_PARITY):
         eng = ragged.RaggedInferenceEngine(llama.build(cfg), ragged.RaggedConfig(**ENGINE, **over),
                                            dtype=torch.float32, params=params)
         toks[name] = [run(eng, prompts, MAX_NEW) for _ in range(2)]
         replays[name] = eng.programs.replays
+        sched[name] = (eng.sched_dispatches, eng.sched_iterations, eng.spec_proposed,
+                       eng.spec_accepted)
         del eng
     del params
     torch.cuda.empty_cache()
@@ -1103,7 +1139,12 @@ def parity_device(torch, np, llama, ragged) -> dict:
                 run_ahead_tokens_identical=all(t == want for t in toks["device_run_ahead"]),
                 fused_device_tokens_identical=all(t == want for t in toks["fused_device"]),
                 fused_host_staged_tokens_identical=all(
-                    t == want for t in toks["fused_host_staged"]))
+                    t == want for t in toks["fused_host_staged"]),
+                sched={name: dict(tokens_identical=all(t == want for t in toks[name]),
+                                  graph_replays=replays[name], sched_dispatches=sched[name][0],
+                                  sched_iterations=sched[name][1], spec_proposed=sched[name][2],
+                                  spec_accepted=sched[name][3])
+                       for name, _ in SCHED_PARITY})
 
 
 GRAPH_REL_FRO = 1e-3
@@ -1111,8 +1152,17 @@ GRAPH_REL_FRO = 1e-3
 
 def parity_device_phase(torch, np, llama, ragged, eng) -> None:
     res = parity_device(torch, np, llama, ragged)
+    sched = res.pop("sched")
     emit("parity_device_fp32", model="llama3_8b widths", layers=2,
          reduced="depth 32 -> 2 layers", **res)
+    emit("parity_sched_fp32", model="llama3_8b widths", layers=2,
+         reduced="depth 32 -> 2 layers", requests=res["requests"],
+         new_tokens_each=MAX_NEW, runs=2, engines=sched)
+    if not all(v["tokens_identical"] and v["sched_dispatches"] > 0 and v["graph_replays"] > 0
+               for v in sched.values()):
+        raise AssertionError(f"parity_sched: fp32 greedy tokens of a scheduler engine differ "
+                             f"from the host-staged engine's, or it ran no scheduler program "
+                             f"or no graph: {sched}")
     g = graph_vs_eager(torch, np, llama, eng)
     emit("parity_device_graph_bf16", model="llama3_8b", **g, rel_frobenius_bound=GRAPH_REL_FRO)
     if not (res["device_tokens_identical"] and res["run_ahead_tokens_identical"]
@@ -1194,7 +1244,8 @@ def engine_fused_phase(torch, np, llama, ragged, pa, device_run: dict):
         raise AssertionError(f"engine_fused: (dispatches, scheduled, padded) {schedule}, the "
                              f"JAX engine's {FUSED_SCHEDULE}")
     profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_fused")
-    return launches, in_replays, eng
+    return launches, in_replays, eng, dict(generated_tokens_per_s=gen / wall,
+                                           forwards=d["forwards"])
 
 
 def fused_program_check(torch, np, eng) -> dict:
@@ -1312,6 +1363,282 @@ def parity_fused_phase(torch, np, eng) -> None:
                              f"steps it schedules: {g}")
     if not g["frozen_and_retired_rows_surface_minus_one"]:
         raise AssertionError(f"parity_fused: a frozen or retired row surfaced a token: {g}")
+
+
+# ----------------------------------------------- the multi-step scheduler
+def verify_case(torch, np, dtype, lanes: int = 1 + SPEC_DRAFT):
+    """A speculative verify batch at the 8B shapes, as one scheduler
+    iteration with ``spec_draft`` = lanes - 1 gives kernel 4: 32 sequences,
+    each a slot whose blocks come from a permutation of the pool, fed
+    ``lanes`` consecutive positions from a context of 0..570 keys (lane 0 the
+    committed step, lanes 1.. the drafts), their K/V written into the pool
+    first (``write_kv_paged``), so lane i + 1 attends lane i's key."""
+    from deepspeed_tpu_torch.models.paged import write_kv_paged
+
+    rng = np.random.default_rng(4)
+    n, max_seqs = 32, 32
+    bt = np.zeros((max_seqs + 1, MB), np.int32)
+    bt[:n] = rng.permutation(np.arange(1, NB)).reshape(n, MB)
+    pos0 = rng.integers(0, MB * BS - lanes, n)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    slots = torch.tensor(np.repeat(np.arange(n), lanes), **i32)
+    pos = torch.tensor((pos0[:, None] + np.arange(lanes)[None, :]).reshape(-1), **i32)
+    bt = torch.tensor(bt, **i32)
+    t = n * lanes
+
+    def draw(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=dtype, device="cuda")
+
+    kp, vp = draw(NB, BS, HKV, D), draw(NB, BS, HKV, D)
+    write_kv_paged(kp, vp, draw(t, HKV, D), draw(t, HKV, D), slots, pos, bt)
+    return draw(t, HQ, D), kp, vp, slots, pos, bt
+
+
+def verify_phase(torch, np, pa) -> dict:
+    """Kernel 4 on a verify batch (``verify_case``) against its plain
+    version in fp32 and bf16, within TOL, on a workspace as the engine runs
+    it; the split count the wrapper picks there."""
+    workspace = pa.DecodeWorkspace("cuda", HQ, HKV, D)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        args = verify_case(torch, np, dtype)
+        got = pa.paged_decode_attention(*args, workspace=workspace)
+        want = pa.paged_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        errs[dname] = (got.float() - want.float()).abs().max().item()
+        ok = within(torch, got, want, TOL[dname])
+        emit("kernel_check", kernel="paged_decode", case="verify_batch", dtype=dname,
+             tokens=args[0].shape[0], lanes=1 + SPEC_DRAFT, max_abs_err=errs[dname],
+             check=f"|got-want| <= {TOL[dname]} (1+|want|)", tol=TOL[dname], ok=ok,
+             splits=pa.decode_splits(args[0].shape[0], HKV, MB,
+                                     torch.cuda.get_device_properties(0).multi_processor_count))
+        if not ok:
+            raise AssertionError(f"paged_decode on a verify batch, {dname}: max_abs_err "
+                                 f"{errs[dname]} > {TOL[dname]}")
+        del args
+    return errs
+
+
+def engine_sched_phase(torch, np, llama, ragged, pa, fused_run: dict, sched_run=None):
+    """The serving workload on the bench's configuration plus the scheduler
+    (``SCHED``), or with ``sched_run`` (the scheduler phase's tokens) plus
+    self-speculation (``SPEC``): ``warmup()`` (the fused and scheduler
+    families), a warm-up run, the measured run with every count zeroed just
+    before it, then a profiled run. Returns the measured run's launches, its
+    tokens and the engine (the scheduler program check reads its model)."""
+    spec = sched_run is not None
+    phase = "engine_spec" if spec else "engine_sched"
+    cfg = llama.LlamaConfig.llama3_8b()
+    rcfg = ragged.RaggedConfig(**ENGINE, **(SPEC if spec else SCHED))
+    t0 = time.perf_counter()
+    eng = ragged.RaggedInferenceEngine(llama.build(cfg), rcfg, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    programs = eng.warmup()
+    torch.cuda.synchronize()
+    warm = dict(warmup_programs=programs, warmup_s=time.perf_counter() - t0,
+                warmup_graphs=eng.programs.graphs,
+                warmup_peak_bytes_above_engine=torch.cuda.max_memory_allocated() - mem0,
+                graph_pool_reserved_bytes=torch.cuda.memory_reserved() - reserved0)
+    prompts = requests(np, cfg.vocab_size)
+    warm_s = warm_run(torch, eng, prompts, phase)
+    sched0 = (eng.sched_dispatches, eng.sched_iterations, eng.spec_proposed, eng.spec_accepted)
+    out, wall, launches, plain_calls, d, power = measured_run(torch, pa, eng, prompts)
+    n_sched, iters, proposed, accepted = (
+        a - b for a, b in zip((eng.sched_dispatches, eng.sched_iterations, eng.spec_proposed,
+                               eng.spec_accepted), sched0))
+    in_replays = {"paged_decode": d["decode_launches_in_replays"],
+                  "paged_prefill": d["prefill_launches_in_replays"]}
+    schedule = (d["steps"], d["scheduled_tokens"], d["padded_tokens"])
+    gen = sum(len(v) for v in out.values())
+    extra = {}
+    if spec:
+        extra = dict(spec_draft=SPEC_DRAFT, spec_ngram=SPEC_NGRAM, spec_proposed=proposed,
+                     spec_accepted=accepted, acceptance_rate=accepted / max(1, proposed),
+                     streams_equal_to_engine_sched=sum(out[i] == sched_run[i] for i in out))
+    emit(phase, path=f"device-resident, fused chunks of {FUSED_CHUNK}, pipeline depth "
+                     f"{PIPELINE_DEPTH}, sched_steps {SCHED_STEPS}"
+                     + (f", spec_draft {SPEC_DRAFT}" if spec else "") + ", CUDA graphs",
+         requests=len(out), new_tokens_each=MAX_NEW, generated_tokens=gen, wall_s=wall,
+         generated_tokens_per_s=gen / wall, warmup_wall_s=warm_s, init_s=init_s, **warm,
+         steps=d["steps"], fused_dispatches=d["steps"] - n_sched, sched_dispatches=n_sched,
+         forwards=d["forwards"], sched_iterations=iters, tokens_per_forward=gen / d["forwards"],
+         scheduled_tokens=d["scheduled_tokens"], padded_tokens=d["padded_tokens"],
+         jax_schedule=None if spec else list(SCHED_SCHEDULE),
+         graph_replays=d["graph_replays"], eager_dispatches=d["eager_dispatches"],
+         graph_captures=d["graph_captures"], kernel_launches_in_replays=in_replays,
+         graphs=eng.programs.graphs, host_stage_s=d["host_stage_ns"] / 1e9,
+         readback_s=d["readback_ns"] / 1e9, h2d_bytes=d["h2d_bytes"],
+         steady_dispatches=d["steady_dispatches"], steady_h2d_bytes=d["steady_h2d_bytes"],
+         kernel_launches=launches, plain_version_calls=plain_calls,
+         free_blocks=eng.allocator.free_blocks,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         fused_path_generated_tokens_per_s=fused_run["generated_tokens_per_s"],
+         fused_path_forwards=fused_run["forwards"], **extra,
+         nvidia_smi=nvidia_smi("name", "power.limit"), **power)
+    serving_gates(phase, out, cfg.vocab_size, eng, launches, plain_calls)
+    if programs != SCHED_WARMUP_PROGRAMS:
+        raise AssertionError(f"{phase}: warmup() prepared {programs} programs, the JAX "
+                             f"engine's family has {SCHED_WARMUP_PROGRAMS}")
+    if d["graph_captures"] or d["eager_dispatches"] or d["graph_replays"] != d["steps"]:
+        raise AssertionError(f"{phase}: after warmup() the measured run captured "
+                             f"{d['graph_captures']} and ran {d['eager_dispatches']} programs "
+                             f"eagerly ({d['graph_replays']} replays of {d['steps']} dispatches)")
+    if launches != in_replays or n_sched <= 0:
+        raise AssertionError(f"{phase}: kernel launches {launches} not all inside replays "
+                             f"({in_replays}), or no scheduler dispatch ({n_sched})")
+    if not spec and (schedule != SCHED_SCHEDULE
+                     or (d["steps"] - n_sched, n_sched) != SCHED_DISPATCHES):
+        raise AssertionError(f"{phase}: (dispatches, scheduled, padded) {schedule}, the JAX "
+                             f"engine's {SCHED_SCHEDULE}; (fused, sched) dispatches "
+                             f"{(d['steps'] - n_sched, n_sched)}, want {SCHED_DISPATCHES}")
+    if spec and proposed <= 0:
+        raise AssertionError(f"{phase}: no draft token was proposed")
+    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_" + phase[7:])
+    return launches, out, eng, dict(generated_tokens_per_s=gen / wall)
+
+
+def sched_program_check(torch, np, eng) -> dict:
+    """One scheduler program of ``eng`` (a scheduler engine at ENGINE's
+    sizes, idle, no drafts) at k = 16 over 32 rows, on a pool of random
+    values: every row live, each with its own blocks (a permutation of the
+    pool), a random feed token and position; a quarter of the rows with
+    budgets of 1..15 steps, the rest 16. An eager probe (no EOS) gives each
+    row's picks; then a quarter of the rows take as EOS their own pick at
+    step 2 or 3. The program runs eagerly, then is captured in a
+    ``ProgramCache`` (its iterations under conditional nodes) and replayed,
+    each from the same state: output (tokens, steps taken, iterations), KV
+    past scratch block 0 and slot rows but the scratch row must be
+    bit-identical, the steps those the probe predicts, the iterations the
+    deepest row's steps, and the KV written exactly that of the positions
+    fed. Then the early exit: a replay where every row retires by iteration
+    3 (EOS at step 1..3) against one with no EOS (16 iterations), each
+    timed by CUDA events, and one where every row starts retired (its EOS
+    is its token row: 0 iterations)."""
+    from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
+
+    rng = np.random.default_rng(9)
+    rcfg = eng.cfg
+    max_seqs, bs, mb = rcfg.max_seqs, rcfg.block_size, rcfg.max_blocks_per_seq
+    k, t = SCHED_STEPS, max_seqs
+    vocab = eng.spec.config.vocab_size
+    bt = np.zeros((max_seqs + 1, mb), np.int32)
+    bt[:t] = rng.permutation(np.arange(1, rcfg.num_blocks))[:t * mb].reshape(t, mb)
+    pos0 = rng.integers(0, mb * bs - 2 * k, t)
+    bud = np.where(np.arange(t) % 4 == 1, rng.integers(1, k, t), k)
+    feed = rng.integers(0, vocab, t)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    staged = torch.tensor(np.concatenate([np.arange(t), np.full(t, -1), pos0 + bud]), **i32)
+    tok_st, pos_st = eng._dev_state[0], eng._dev_state[1]
+    tok_st[:t] = torch.tensor(feed, **i32)
+    pos_st[:t] = torch.tensor(pos0, **i32)
+    eng._bt_dev.copy_(torch.tensor(bt, device="cuda"))
+    for key in ("k", "v"):
+        eng.cache[key].copy_(torch.randn_like(eng.cache[key]))
+    state = [eng.cache["k"], eng.cache["v"], tok_st, pos_st]
+    init = [x.clone() for x in state]
+
+    def restore(rows_only=False):
+        for x, x0 in list(zip(state, init))[2 if rows_only else 0:]:
+            x.copy_(x0)
+
+    def set_eos(eos):
+        staged[t:2 * t] = torch.tensor(eos, **i32)
+
+    fn = eng._get_dev_sched(k, t, mb, staged)
+    probe = fn()[:k * t].reshape(k, t).cpu().numpy()
+    restore()
+    eos = np.full(t, -1)
+    at = rng.integers(1, 3, t)  # EOS at step 2 or 3
+    for j in range(t):
+        if j % 4 == 2:
+            eos[j] = probe[at[j], j]
+    steps = np.array([next((i + 1 for i in range(bud[j]) if probe[i, j] == eos[j]), bud[j])
+                      for j in range(t)])
+    set_eos(eos)
+    eager = fn().clone()
+    after = [x.clone() for x in state]
+    restore()
+    programs = ProgramCache("cuda")
+    key = ("sched", k, t, mb, 0)
+    programs.run_loop(key, fn)  # eager on the capture stream, then captured
+    restore()
+    replayed = programs.run_loop(key, fn)[0].clone()
+    torch.cuda.synchronize()
+    got_steps = replayed[k * t:k * t + t].cpu().numpy()
+    iterations = int(replayed[-1])
+    identical = bool(torch.equal(eager, replayed)) and all(
+        torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(after[:2], state[:2])) and all(
+        torch.equal(a[:-1], b[:-1]) for a, b in zip(after[2:], state[2:]))
+    expect = np.zeros((rcfg.num_blocks, bs), bool)
+    for j in range(t):
+        for p in range(pos0[j], pos0[j] + steps[j]):
+            expect[bt[j, p // bs], p % bs] = True
+    wrote = ((after[0] != init[0]) | (after[1] != init[1])).flatten(3).any(-1).any(0)
+    wrote = wrote.cpu().numpy()
+    outside = int((wrote & ~expect)[1:].sum())
+    missing = int((expect & ~wrote)[1:].sum())
+    del after
+
+    def timed(eos_row, reps=10):
+        """Mean CUDA-event ms of a replay over the last reps - 2, each
+        replay's ms, the host ms of its launch call, and the iterations."""
+        set_eos(eos_row)
+        ms, host, its = [], [], set()
+        for _ in range(reps):
+            restore(rows_only=True)
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            h0 = time.perf_counter()
+            out, _ = programs.run_loop(key, fn)
+            host.append((time.perf_counter() - h0) * 1e3)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+            its.add(int(out[-1]))
+        return sum(ms[2:]) / len(ms[2:]), dict(replay_ms=ms, launch_host_ms=host), sorted(its)
+
+    early_eos = np.array([probe[min(int(rng.integers(0, 3)), bud[j] - 1), j] for j in range(t)])
+    full_ms, full_reps, full_its = timed(np.full(t, -1))
+    early_ms, early_reps, early_its = timed(early_eos)
+    retired_ms, retired_reps, retired_its = timed(feed)
+    restore()
+    del init
+    eng._bt_dev.zero_()
+    torch.cuda.empty_cache()
+    return dict(k=k, rows=t, layers=eng.spec.config.num_layers, dtype=str(eng.dtype).split(".")[1],
+                graph_replays=programs.replays, bit_identical=identical,
+                steps_as_probed=bool((got_steps == steps).all()),
+                iterations=iterations, deepest_row_steps=int(steps.max()),
+                kv_rows_written_outside_schedule=outside, kv_rows_missing=missing,
+                full_replay_ms=full_ms, full_iterations=full_its,
+                early_exit_replay_ms=early_ms, early_exit_iterations=early_its,
+                early_to_full=early_ms / full_ms, all_retired_replay_ms=retired_ms,
+                all_retired_iterations=retired_its,
+                reps=dict(full=full_reps, early_exit=early_reps, all_retired=retired_reps))
+
+
+def parity_sched_phase(torch, np, eng) -> None:
+    g = sched_program_check(torch, np, eng)
+    emit("sched_program_check", model="llama3_8b", **g, early_to_full_bound=0.25,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not (g["bit_identical"] and g["steps_as_probed"]):
+        raise AssertionError(f"sched_program_check: the replayed scheduler graph differs from "
+                             f"its eager run, or its steps from the probe's: {g}")
+    if g["iterations"] != g["deepest_row_steps"]:
+        raise AssertionError(f"sched_program_check: {g['iterations']} iterations, the deepest "
+                             f"row took {g['deepest_row_steps']} steps: {g}")
+    if g["kv_rows_written_outside_schedule"] or g["kv_rows_missing"]:
+        raise AssertionError(f"sched_program_check: the program's KV writes are not the "
+                             f"positions it fed: {g}")
+    if (g["full_iterations"] != [SCHED_STEPS] or max(g["early_exit_iterations"]) > 3
+            or g["all_retired_iterations"] != [0] or not g["early_to_full"] < 0.25):
+        raise AssertionError(f"sched_program_check: the early exit is not real: {g}")
 
 
 # ------------------------------------------------------------------- train
@@ -1541,6 +1868,7 @@ def main() -> int:
 
     # 3. kernels vs plain versions, times and bounds; other head dims
     times = kernel_phase(torch, np, pa)
+    verify_errs = verify_phase(torch, np, pa)
     times.update(flash_kernel_phase(torch, fa))
     head_dims_phase(torch, np, pa, fa, llama, engine_mod)
 
@@ -1554,9 +1882,20 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     # 5c. the reference bench's serving configuration: fused chunks
-    fused_launches, fused_in_replays, eng = engine_fused_phase(torch, np, llama, ragged, pa,
-                                                               device_run)
+    fused_launches, fused_in_replays, eng, fused_run = engine_fused_phase(
+        torch, np, llama, ragged, pa, device_run)
     parity_fused_phase(torch, np, eng)
+    del eng
+    torch.cuda.empty_cache()
+    # 5d. the multi-step scheduler on the bench's configuration, its program
+    # check, and 5e. self-speculation on top
+    sched_launches, sched_tokens, eng, _ = engine_sched_phase(torch, np, llama, ragged, pa,
+                                                              fused_run)
+    parity_sched_phase(torch, np, eng)
+    del eng
+    torch.cuda.empty_cache()
+    spec_launches, _, eng, _ = engine_sched_phase(torch, np, llama, ragged, pa, fused_run,
+                                                  sched_run=sched_tokens)
     del eng
     torch.cuda.empty_cache()
 
@@ -1585,8 +1924,12 @@ def main() -> int:
                             launches_engine_device=device_launches.get(name),
                             launches_engine_fused=fused_launches.get(name),
                             launches_engine_fused_in_replays=fused_in_replays.get(name),
+                            launches_engine_sched=sched_launches.get(name),
+                            launches_engine_spec=spec_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
+                            **({"max_abs_err_verify_batch": verify_errs}
+                               if name == "paged_decode" else {}),
                             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

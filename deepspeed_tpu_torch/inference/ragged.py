@@ -32,9 +32,23 @@ instead: one program runs a mixed SplitFuse step and then up to
 next chunk's decode feed stays on the device); ``warmup()`` prepares the
 program family before serving. On a CUDA device with device-resident state
 every fused program, mixed or not, replays as a CUDA graph.
-The JAX engine's sched and spec modes, the prefix cache, KV tiers, low-bit
-pools, handoff, telemetry, fault injection and seeded sampling are not
-ported yet (``ROADMAP.md``).
+
+With ``sched_steps`` >= 2 (device-resident state only; the host-staged path
+ignores it, as the JAX engine does) every all-decode turn goes to the
+multi-step scheduler: one program runs up to ``sched_steps`` decode
+iterations and retires rows on EOS and length inside the program, exiting
+when every row has retired (on the card a CUDA graph whose iterations sit
+under conditional nodes, ``inference/cuda_graphs.py``). With ``spec_draft``
+D > 0 each iteration also drafts up to D tokens a row from the row's own
+token history (prompt lookup, ``inference/sampling.py``) and verifies them
+in the same forward. Verification is exact-match against the model's own
+greedy picks, so the output is token-identical to plain decoding; for
+sampled requests that holds only once seeded sampling is ported (``put``
+refuses ``temperature > 0`` until then). With ``fused_chunk`` set, mixed
+waves run as fused chunks and all-decode turns as scheduler programs.
+
+The prefix cache, KV tiers, low-bit pools, handoff, telemetry, fault
+injection and seeded sampling are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -47,8 +61,10 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
-from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
+from deepspeed_tpu_torch.inference.cuda_graphs import LoopProgram, ProgramCache
+from deepspeed_tpu_torch.inference.sampling import accept_drafts, propose_ngram_drafts
 from deepspeed_tpu_torch.models.api import ModelSpec
+from deepspeed_tpu_torch.models.paged import speculative_lane_layout
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -244,6 +260,21 @@ class RaggedConfig:
     # the device, steady decode stages nothing, readback runs one dispatch
     # behind. False: the host-staged path (token-identical).
     device_state: bool = True
+    # device-side multi-step decode scheduler (>= 2 enables): when every
+    # running sequence decodes, ONE program runs up to sched_steps decode
+    # steps and retires rows on EOS and length inside the program (retired
+    # rows run on the scratch slot; the loop exits once every row retired)
+    # and returns each row's steps taken, so the host only reconciles.
+    # Needs device_state (inert on the host-staged path, token-identical).
+    sched_steps: int = 0
+    # self-speculative decoding depth (> 0 enables; needs sched_steps >= 2):
+    # each scheduler iteration drafts up to spec_draft tokens a row by
+    # n-gram prompt lookup over the row's own token history and verifies
+    # them in the same forward; exact-match verification keeps the output
+    # that of plain decoding
+    spec_draft: int = 0
+    # suffix length the prompt-lookup draft matches
+    spec_ngram: int = 3
 
     @property
     def max_seq_len(self) -> int:
@@ -320,6 +351,13 @@ class RaggedInferenceEngine:
             raise ValueError("fused_chunk must be 0 (off) or >= 2")
         if self.cfg.fused_chunk and self.cfg.pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if self.cfg.sched_steps == 1 or self.cfg.sched_steps < 0:
+            raise ValueError("sched_steps must be 0 (off) or >= 2")
+        if self.cfg.spec_draft:
+            if self.cfg.sched_steps < 2:
+                raise ValueError("spec_draft requires sched_steps >= 2")
+            if self.cfg.spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
         self.spec = model
         if self.spec.ragged_forward_fn is None or self.spec.init_paged_cache_fn is None:
             raise ValueError(f"model {self.spec.name} has no ragged/paged support")
@@ -401,6 +439,21 @@ class RaggedInferenceEngine:
         self._pending: list[dict] = []
         self.programs = ProgramCache(self.device)
         self._on_card = self.device.type == "cuda"
+        # self-speculative draft state: each slot's token history (prompt +
+        # generated, by position), which the scheduler program appends to
+        # and drafts from. Any other path that moves a slot marks its row
+        # stale, and a stale row is uploaded from the host's prompt +
+        # generated before the slot's next scheduler dispatch.
+        self._hist_dev = (torch.zeros((s1, self.cfg.max_seq_len), **i32)
+                          if self.cfg.spec_draft else None)
+        self._hist_stale = np.ones(s1, bool)
+        # a scheduler dispatch declined because stale history rows cannot be
+        # uploaded yet (dispatches in flight): the turn reconciles instead of
+        # falling through to a per-step dispatch
+        self._sched_wait = False
+        self._sched_programs: dict = {}
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         # scheduling and dispatch accounting
         self.tokens_scheduled = 0
         self.tokens_padded = 0
@@ -423,9 +476,13 @@ class RaggedInferenceEngine:
         # run-ahead dispatches and the real tokens they scheduled (K a row)
         self.run_ahead_dispatches = 0
         self.run_ahead_tokens = 0
-        # model forwards dispatched: one a step, K a run-ahead chunk, and a
-        # fused chunk's step plus its scan steps
+        # model forwards dispatched: one a step, K a run-ahead chunk, a fused
+        # chunk's step plus its scan steps, and a scheduler program's
+        # iterations (counted when its tokens are read back)
         self.forwards = 0
+        # scheduler dispatches and the iterations they ran
+        self.sched_dispatches = 0
+        self.sched_iterations = 0
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
@@ -700,6 +757,8 @@ class RaggedInferenceEngine:
         if not self.has_work:
             return {}  # the sweep retired everything schedulable
         if self.cfg.fused_chunk >= 2:
+            if self.cfg.sched_steps >= 2 and self.cfg.device_state:
+                return self._step_fused_sched()
             return self._step_fused()
         if self.cfg.device_state:
             return self._step_device()
@@ -916,6 +975,7 @@ class RaggedInferenceEngine:
                         (plen_st, ivd[3]), (topk_st, ivd[4]), (temp_st, fvd[0]),
                         (topp_st, fvd[1])):
             st[seq.slot].copy_(val)
+        self._hist_stale[seq.slot] = True
 
     def _sync_bt(self) -> bool:
         """Delta-upload the block-table rows dirtied since the last dispatch
@@ -1073,6 +1133,7 @@ class RaggedInferenceEngine:
             s.pos += k
             s.refs += 1
             self._slot_feed[s.slot] = True
+            self._hist_stale[s.slot] = True
             emits.append((s, k))
         self.tokens_scheduled += k * t
         self.tokens_padded += k * (bucket - t)
@@ -1082,6 +1143,207 @@ class RaggedInferenceEngine:
                               "participants": seqs})
         self._note_dispatch(t0, k)
         self._note_steady(True, dirty, (bucket, tuple(slots)), h2d0, stage0)
+        return True
+
+    # ------------------------------------- device-side multi-step scheduler
+    def _get_dev_sched(self, k: int, t: int, w: int, staged: torch.Tensor) -> LoopProgram:
+        """Multi-step decode scheduler with device-side retirement (and,
+        with ``spec_draft``, self-speculation): up to ``k`` decode
+        iterations over the rows in ``staged`` (``[slots | eos | limit]``,
+        ``limit`` the last feed position, ``prompt_len + max_new - 1``, so
+        steady decode stages the same bytes and uploads nothing). Feed token
+        and position come from the slot rows; each row's budget is
+        min(k, limit - pos), derived on the device. A row retires on its EOS
+        or its budget and then runs on the scratch slot; the loop ends when
+        every row has retired. A row the host re-dispatched after the device
+        picked its EOS (a dispatch not yet read back) finds that EOS in its
+        token row and takes no step.
+
+        With ``spec_draft`` D each iteration drafts D tokens a row from the
+        token history (``propose_ngram_drafts``), lays them out as verify
+        lanes (``speculative_lane_layout``), runs one forward over t (1+D)
+        tokens and surfaces the accepted prefix plus the model's own next
+        pick (``accept_drafts``), appending what it surfaces to the history.
+
+        A ``LoopProgram`` whose carry (tokens, positions, emitted counts,
+        retired flags, the output rows, the counts) lives in buffers made
+        here, which every iteration updates in place. Its output packs
+        ``[k, t]`` tokens (-1 where none), each row's steps taken ``[t]``,
+        then the drafted and accepted counts and the iterations run."""
+        # the program refers to the engine's tensors, not to the engine: the
+        # engine keeps its programs, so a reference back would be a cycle
+        # that holds the parameters after the engine is dropped
+        fwd, params, cache = self.spec.ragged_forward_fn, self.params, self.cache
+        max_seqs, d, ngram = self.cfg.max_seqs, self.cfg.spec_draft, self.cfg.spec_ngram
+        lanes = 1 + d
+        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        hist = self._hist_dev
+        bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        slots, eos, limit = staged[:t], staged[t:2 * t], staged[2 * t:3 * t]
+        toks, pos, emitted, bud, cap = (torch.zeros(t, **i32) for _ in range(5))
+        real, done = (torch.zeros(t, dtype=torch.bool, device=dev) for _ in range(2))
+        out = torch.full((k + 1, t), -1, **i32)  # row k takes the lanes not surfaced
+        counts = torch.zeros(3, **i32)  # drafted, accepted, iterations
+        pred = torch.zeros((), dtype=torch.bool, device=dev)
+        lane_i = torch.arange(lanes, device=dev)[None, :]
+        col_i = torch.arange(t, device=dev)[:, None].expand(t, lanes)
+        no_draft = torch.zeros((t, 0), **i32)
+
+        def prologue():
+            sl = slots.long()
+            real.copy_(slots != max_seqs)
+            toks.copy_(tok_st[sl])
+            pos.copy_(torch.where(real, pos_st[sl], 0))
+            # the host holds KV blocks for min(k, limit - pos) feeds of each
+            # row: cap is the first position without one
+            bud.copy_(torch.where(real, torch.clamp(limit - pos, 0, k), 0))
+            cap.copy_(pos + bud)
+            done.copy_(~real | (bud <= 0) | ((eos >= 0) & (toks == eos)))
+            emitted.zero_()
+            out.fill_(-1)
+            counts.zero_()
+            pred.copy_((~done).any())
+
+        def body():
+            live = ~done
+            draft = propose_ngram_drafts(hist[slots.long()], pos, ngram, d)[0] if d else None
+            ftok, fslot, fpos, _ = speculative_lane_layout(toks, draft, pos, live, cap, slots,
+                                                           max_seqs)
+            logits, _ = fwd(params, ftok, fslot, fpos, bt, cache)
+            picked = torch.argmax(logits.float(), dim=-1).to(torch.int32).reshape(t, lanes)
+            n_emit, n_acc = accept_drafts(no_draft if draft is None else draft, picked,
+                                          torch.where(live, bud - emitted, 0), eos)
+            sel = lane_i < n_emit[:, None]
+            # surfaced token i lands in out row emitted + i, the rest in row k
+            out.index_put_((torch.where(sel, emitted[:, None] + lane_i, k).long(), col_i),
+                           picked)
+            if d:  # surfaced token i is the token at position pos + 1 + i
+                hist.index_put_((torch.where(sel, slots[:, None], max_seqs).long(),
+                                 torch.where(sel, pos[:, None] + 1 + lane_i, 0).long()), picked)
+            last = torch.gather(picked, 1, torch.clamp(n_emit - 1, 0, lanes - 1).long()[:, None])
+            last = last[:, 0]
+            toks.copy_(torch.where(n_emit > 0, last, toks))
+            pos.add_(n_emit)
+            emitted.add_(n_emit)
+            done.copy_(done | ((eos >= 0) & (last == eos) & (n_emit > 0)) | (emitted >= bud))
+            counts[:2].add_(torch.stack([torch.where(live, d, 0).sum(), n_acc.sum()])
+                            .to(torch.int32))
+            counts[2:].add_(1)
+            pred.copy_((~done).any())
+
+        def epilogue():
+            sl = torch.where(real, slots, max_seqs).long()
+            tok_st.index_put_((sl,), torch.where(real, toks, tok_st[sl]))
+            pos_st.index_put_((sl,), torch.where(real, pos, pos_st[sl]))
+            return torch.cat([out[:k].reshape(-1), emitted, counts])
+
+        return LoopProgram(prologue, body, epilogue, pred, k)
+
+    def _sched_program(self, k: int, t: int, w: int, staged: torch.Tensor):
+        """(key, program) of the scheduler program ``(k, t, w)``, made once:
+        its carry buffers and its staging buffer persist, so the program
+        (and on the card its graph) serves every dispatch of the key."""
+        key = ("sched", k, t, w, self.cfg.spec_draft)
+        prog = self._sched_programs.get(key)
+        if prog is None:
+            prog = self._sched_programs[key] = self._get_dev_sched(k, t, w, staged)
+        return key, prog
+
+    def _upload_hist(self, seq: _SeqState) -> None:
+        """Write one slot's history row anew from the host's complete view
+        (prompt + generated). Only when the slot has no dispatch in flight:
+        otherwise ``generated`` lags the device's position and the row would
+        hold a hole where the draft matcher reads."""
+        row = np.zeros(self.cfg.max_seq_len, np.int32)
+        toks = seq.prompt + seq.generated
+        row[:len(toks)] = toks
+        self.h2d_bytes += row.nbytes + 4  # and the row index
+        self._hist_dev[seq.slot].copy_(self._upload(row))
+        self._hist_stale[seq.slot] = False
+
+    def _dispatch_sched_device(self) -> bool:
+        """Dispatch one scheduler program when every running sequence
+        decodes. The eligibility and admission rules of run-ahead, but each
+        row is budgeted on its own (a row near its length limit no longer
+        caps the chunk: the program retires it in place): k is the deepest
+        budget rounded DOWN to a power of two (the device derives each
+        row's steps as min(k, limit - pos), so k must not pass the capacity
+        reserved here), capped under admission pressure; a row whose blocks
+        cannot be reserved is preempted. Host positions advance by each
+        row's budget at once (an EOS retires the sequence at reconcile,
+        whatever it overshot), and the tokens, steps taken and counts are
+        left in a pending record."""
+        cfg = self.cfg
+        k_max = cfg.sched_steps
+        seqs = [s for s in self._running.values() if not s.finished]
+        if not seqs or any(not s.in_decode for s in seqs):
+            return False
+        if self._queued and self._free_slots:
+            k_max = min(k_max, cfg.run_ahead_admission_cap)
+            if k_max < 1:
+                return False
+        plan, max_bud = [], 0
+        for s in seqs:
+            bud = len(s.prompt) + s.max_new_tokens - 1 - s.pos
+            if bud <= 0:
+                continue  # fully scheduled; retires as its dispatches reconcile
+            plan.append(s)
+            max_bud = max(max_bud, min(bud, k_max))
+        if not plan:
+            return False
+        k = 1 << (max_bud.bit_length() - 1)
+        kept = []
+        for s in plan:
+            k_s = min(k, len(s.prompt) + s.max_new_tokens - 1 - s.pos)
+            if not self._ensure_capacity(s, s.pos + k_s):
+                s.preemptions += 1
+                self.preemptions += 1
+                continue
+            kept.append((s, k_s))
+        if not kept:
+            return False
+        h2d0, stage0 = self.h2d_bytes, self.stage_bytes
+        if cfg.spec_draft:
+            stale = [s for s, _ in kept if self._hist_stale[s.slot]]
+            if any(s.refs for s in stale):
+                self._sched_wait = True
+                return False
+            for s in stale:
+                self._upload_hist(s)
+        t0 = time.perf_counter()
+        t = len(kept)
+        bucket = next(b for b in self._buckets if b >= t)
+        slots = np.full(bucket, cfg.max_seqs, np.int32)
+        eos = np.full(bucket, -1, np.int32)
+        limit = np.zeros(bucket, np.int32)
+        max_pos = 0
+        for j, (s, k_s) in enumerate(kept):
+            slots[j] = s.slot
+            if s.eos_token_id is not None:
+                eos[j] = s.eos_token_id
+            limit[j] = len(s.prompt) + s.max_new_tokens - 1
+            max_pos = max(max_pos, s.pos + k_s - 1)
+        dirty = self._sync_bt()
+        staged = self._stage(np.concatenate([slots, eos, limit]))
+        w = self._table_width(max_pos)
+        out, per_iteration = self.programs.run_loop(*self._sched_program(k, bucket, w, staged))
+        emits = []
+        for s, k_s in kept:
+            s.pos += k_s
+            s.refs += 1
+            self._slot_feed[s.slot] = True
+            emits.append((s, k_s))
+        sched_tok = sum(k_s for _, k_s in kept)
+        self.tokens_scheduled += sched_tok
+        self.tokens_padded += k * bucket - sched_tok
+        self.sched_dispatches += 1
+        self._pending.append({"kind": "sched", "out": self._readback(out), "emits": emits,
+                              "participants": [s for s, _ in kept], "k": k, "t": bucket,
+                              "per_iteration": per_iteration})
+        self._note_dispatch(t0, 0)  # its forwards are counted at reconcile
+        self._note_steady(True, dirty, (staged.shape[0], tuple(slots)), h2d0, stage0)
         return True
 
     def _dispatch_step_device(self) -> bool:
@@ -1107,10 +1369,11 @@ class RaggedInferenceEngine:
         for seq in list(self._running.values()):
             if seq.finished or not seq.in_decode or n_dec >= dec_cap:
                 continue
-            # the feed at limit - 1 yields the last budgeted token; one more
-            # may be scheduled and is discarded at reconcile (the JAX
-            # engine's slop)
-            if seq.pos >= len(seq.prompt) + seq.max_new_tokens:
+            # the feed at limit - 1 yields the last budgeted token; with the
+            # scheduler on that is the bound, otherwise one more may be
+            # scheduled and is discarded at reconcile (the JAX engine's slop)
+            lim = len(seq.prompt) + seq.max_new_tokens - (cfg.sched_steps >= 2)
+            if seq.pos >= lim:
                 continue  # fully scheduled; retires as its dispatches reconcile
             if not self._ensure_capacity(seq, seq.pos + 1):
                 seq.preemptions += 1
@@ -1188,6 +1451,7 @@ class RaggedInferenceEngine:
         participants = list({seq.slot: seq for _, seq in emit}.values())
         for seq in participants:
             seq.refs += 1
+            self._hist_stale[seq.slot] = True
         self._pending.append({"kind": "step", "out": self._readback(picked), "emit": emit,
                               "participants": participants})
         self._note_dispatch(t0)
@@ -1234,6 +1498,22 @@ class RaggedInferenceEngine:
         if rec["kind"] == "step":
             for row, seq in rec["emit"]:
                 self._append_tokens(seq, [int(toks[row])], out)
+        elif rec["kind"] == "sched":
+            # [K, bucket] tokens | steps taken [bucket] | proposed | accepted
+            # | iterations
+            k, t = rec["k"], rec["t"]
+            steps = toks[k * t:k * t + t]
+            proposed, accepted, iterations = (int(x) for x in toks[-3:])
+            for j, (seq, _) in enumerate(rec["emits"]):
+                if steps[j]:
+                    self._append_tokens(seq, toks[j:k * t:t][:steps[j]], out)
+            if self.cfg.spec_draft:
+                self.spec_proposed += proposed
+                self.spec_accepted += accepted
+            self.forwards += iterations
+            self.sched_iterations += iterations
+            if rec["per_iteration"] is not None:
+                self.programs.add_iterations(rec["per_iteration"], iterations)
         else:  # chunk: [K, bucket]
             for j, (seq, k) in enumerate(rec["emits"]):
                 self._append_tokens(seq, toks[:k, j], out)
@@ -1241,16 +1521,21 @@ class RaggedInferenceEngine:
         return out
 
     def _step_device(self) -> dict:
-        """One device-resident turn: admit, dispatch a run-ahead chunk or a
-        step if anything is schedulable, then reconcile the oldest pending
+        """One device-resident turn: admit, dispatch a scheduler program, or
+        else (unless it waits for stale history rows) a run-ahead chunk or a
+        step, if anything is schedulable; then reconcile the oldest pending
         dispatch once the window holds two (or nothing was dispatched), so
         the readback of dispatch t overlaps the card running t + 1."""
         self._admit_queued()
         dispatched = False
-        if self.cfg.decode_run_ahead >= 2:
-            dispatched = self._dispatch_chunk_device()
-        if not dispatched:
-            dispatched = self._dispatch_step_device()
+        self._sched_wait = False
+        if self.cfg.sched_steps >= 2:
+            dispatched = self._dispatch_sched_device()
+        if not dispatched and not self._sched_wait:
+            if self.cfg.decode_run_ahead >= 2:
+                dispatched = self._dispatch_chunk_device()
+            if not dispatched:
+                dispatched = self._dispatch_step_device()
         if self._pending and (not dispatched or len(self._pending) >= 2):
             return self._reconcile_pending()
         if not dispatched and not self._pending and (self._queued or self._running):
@@ -1377,35 +1662,56 @@ class RaggedInferenceEngine:
                 yield kk, nd, nt, w, t
 
     def warmup(self) -> int:
-        """Prepare the fused-chunk program family (``fused_chunk`` >= 2)
-        before serving, the counterpart of the JAX engine's ``warmup()``:
-        each program ``_fused_family`` lists. On the device-resident path
-        each runs once eagerly on an all-scratch staging buffer (every slot
-        ``max_seqs``, flags 0, no valid tile row: its KV writes land in
-        scratch block 0 and its slot-row writes in the scratch row, so no
-        engine state changes) and, on a CUDA device, is captured, so serving
-        replays it from its first dispatch. The host-staged path runs its
-        programs eagerly and has nothing to prepare. Returns the number of
-        programs (a program two combinations reach counts twice, as in the
-        JAX engine)."""
-        if self.cfg.fused_chunk < 2:
-            return 0
+        """Prepare the program families before serving, the counterpart of
+        the JAX engine's ``warmup()``: the fused-chunk family
+        (``fused_chunk`` >= 2, each program ``_fused_family`` lists) and, on
+        the device-resident path, the scheduler family (``sched_steps`` >=
+        2, ``_sched_family``). On the device-resident path each program runs
+        once eagerly on an all-scratch staging buffer (every slot
+        ``max_seqs``, flags 0, no valid tile row, no live scheduler row: its
+        KV writes land in scratch block 0, its slot-row and history writes in
+        the scratch rows, so no engine state changes) and, on a CUDA device,
+        is captured, so serving replays it from its first dispatch. The
+        host-staged path runs its fused programs eagerly and has nothing to
+        prepare. Returns the number of programs (a program two combinations
+        reach counts twice, as in the JAX engine)."""
         max_seqs = self.cfg.max_seqs
         n = 0
-        for k, nd, nt, w, t in self._fused_family():
-            n += 1
-            if not self.cfg.device_state:
-                continue
-            nt_prog = nt if self._use_tiles else 0
-            ndl, ntl = max(nd, 1), max(nt_prog, 1)
-            parts = [np.zeros(t), np.full(t, max_seqs), np.zeros(2 * t), np.zeros(ndl),
-                     np.full(ndl, -1)]
-            if nt_prog:
-                parts += [np.full(ntl, max_seqs), np.zeros(2 * ntl)]
-            staged = self._stage(np.concatenate(parts).astype(np.int32), account=False)
-            self.programs.warm(("fused", t, k, nd, nt_prog, w),
-                               self._get_dev_fused(t, k, nd, nt_prog, w, staged))
+        if self.cfg.fused_chunk >= 2:
+            for k, nd, nt, w, t in self._fused_family():
+                n += 1
+                if not self.cfg.device_state:
+                    continue
+                nt_prog = nt if self._use_tiles else 0
+                ndl, ntl = max(nd, 1), max(nt_prog, 1)
+                parts = [np.zeros(t), np.full(t, max_seqs), np.zeros(2 * t), np.zeros(ndl),
+                         np.full(ndl, -1)]
+                if nt_prog:
+                    parts += [np.full(ntl, max_seqs), np.zeros(2 * ntl)]
+                staged = self._stage(np.concatenate(parts).astype(np.int32), account=False)
+                self.programs.warm(("fused", t, k, nd, nt_prog, w),
+                                   self._get_dev_fused(t, k, nd, nt_prog, w, staged))
+        if self.cfg.sched_steps >= 2 and self.cfg.device_state:
+            for k, t, w in self._sched_family():
+                n += 1
+                staged = self._stage(np.concatenate(
+                    [np.full(t, max_seqs), np.full(t, -1), np.zeros(t)]).astype(np.int32),
+                    account=False)
+                self.programs.warm(*self._sched_program(k, t, w, staged))
         return n
+
+    def _sched_family(self):
+        """Every scheduler program ``_dispatch_sched_device`` can dispatch,
+        as the JAX engine's ``_warmup_sched`` enumerates them: ``(k, t, w)``
+        for each power of two k up to ``sched_steps``, each token bucket up
+        to the one that holds ``max_seqs`` rows, and each table width."""
+        ks, p = [], 1
+        while p <= self.cfg.sched_steps:
+            ks.append(p)
+            p *= 2
+        bmax = next(b for b in self._buckets if b >= self.cfg.max_seqs)
+        return [(k, t, w) for k in ks for t in self._buckets if t <= bmax
+                for w in self._width_ladder()]
 
     def _dispatch_fused(self) -> bool:
         """Schedule and dispatch ONE fused chunk from host state (no
@@ -1647,6 +1953,7 @@ class RaggedInferenceEngine:
             participants[seq.slot] = seq
         for seq in participants.values():
             seq.refs += 1
+            self._hist_stale[seq.slot] = True
         self._inflight_chunks.append({
             "out": self._readback(packed), "k": k, "nd": nd, "decs": decs,
             "pf_done": pf_done, "participants": list(participants.values())})
@@ -1684,6 +1991,31 @@ class RaggedInferenceEngine:
         if not dispatched and not self._inflight_chunks:
             self._deadlock_guard(0)
         return {}
+
+    def _sched_eligible(self) -> bool:
+        """Whether a scheduler turn could engage now: everything running
+        decodes and admission pressure does not forbid a chunk (the checks
+        ``_dispatch_sched_device`` makes before it plans)."""
+        seqs = [s for s in self._running.values() if not s.finished]
+        if not seqs or any(not s.in_decode for s in seqs):
+            return False
+        return not (self._queued and self._free_slots
+                    and min(self.cfg.sched_steps, self.cfg.run_ahead_admission_cap) < 1)
+
+    def _step_fused_sched(self) -> dict:
+        """The fused pipeline with the scheduler on top: mixed prefill and
+        decode waves run as fused chunks; once the batch is all-decode the
+        turn goes to the scheduler (``_step_device``). The two windows never
+        interleave: each drains before the other dispatches, so every
+        sequence's dispatches reconcile in order."""
+        self._admit_queued()
+        if self._sched_eligible():
+            if self._inflight_chunks:
+                return self._reconcile_oldest()
+            return self._step_device()
+        if self._pending:
+            return self._reconcile_pending()
+        return self._step_fused()
 
     def drain(self) -> dict:
         """Reconcile every fused chunk in flight and every pending dispatch

@@ -30,6 +30,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".dstpu_torch_build"
 KERNELS = ("paged_decode", "paged_prefill", "flash_fwd", "flash_bwd", "wide_head")
+# every source: the kernels, and the loop-graph composer the engine's
+# scheduler programs replay through (it computes nothing)
+SOURCES = (*KERNELS, "graph_loop")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -92,8 +95,8 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all(names=KERNELS) -> dict[str, Path]:
-    """Build every kernel at once, one nvcc process per source."""
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Build every source at once, one nvcc process per source."""
     with ThreadPoolExecutor(max_workers=len(names)) as ex:
         futures = {n: ex.submit(build, n) for n in names}
         return {n: f.result() for n, f in futures.items()}

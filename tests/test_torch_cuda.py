@@ -426,7 +426,16 @@ ENGINE_RCFG = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=
                    max_blocks_per_seq=16)
 GRAPH_MODES = {"plain": {}, "tiled": {"prefill_tile": 8}, "run_ahead": {"decode_run_ahead": 4},
                "fused": {"fused_chunk": 4, "pipeline_depth": 3},
-               "fused_tiled": {"fused_chunk": 4, "pipeline_depth": 3, "prefill_tile": 8}}
+               "fused_tiled": {"fused_chunk": 4, "pipeline_depth": 3, "prefill_tile": 8},
+               "sched": {"sched_steps": 8},
+               "spec": {"sched_steps": 8, "spec_draft": 4},
+               "fused_spec": {"fused_chunk": 4, "pipeline_depth": 3, "sched_steps": 8,
+                              "spec_draft": 4}}
+# the program kinds each mode captures: exactly, or (scheduler modes) at
+# least the scheduler's and at most these
+GRAPH_KINDS = {"run_ahead": {"step", "chunk"}, "fused": {"fused"}, "fused_tiled": {"fused"},
+               "sched": {"step", "sched"}, "spec": {"step", "sched"},
+               "fused_spec": {"fused", "sched"}}
 
 
 def _graph_engine(mode, dtype, graphs: bool):
@@ -462,17 +471,29 @@ def _graph_run(mode, dtype, graphs: bool, max_new=24):
 @pytest.mark.parametrize("mode", list(GRAPH_MODES))
 def test_graphs_replay_bit_identical_to_eager(cuda, mode, dtype):
     """The captured steps (and, with run-ahead, chunks; with fused chunks,
-    every fused program, mixed ones too) replay bit for bit what the same
-    programs compute eagerly on the same inputs: the same tokens and the
-    same KV pool."""
+    every fused program, mixed ones too; with the scheduler, its loop
+    programs, their iterations under conditional nodes) replay bit for bit
+    what the same programs compute eagerly on the same inputs: the same
+    tokens and the same KV pool (past scratch block 0 with the scheduler,
+    whose retired and draft lanes all write key 0 of block 0 at once)."""
     out_g, cache_g, _, eng = _graph_run(mode, dtype, graphs=True)
     out_e, cache_e, _, ref = _graph_run(mode, dtype, graphs=False)
     assert eng.programs.replays > 0 and ref.programs.replays == 0
     kinds = {key[0] for key in eng.programs._graphs}
-    assert kinds == {"run_ahead": {"step", "chunk"}, "fused": {"fused"},
-                     "fused_tiled": {"fused"}}.get(mode, {"step"})
+    if "sched_steps" in GRAPH_MODES[mode]:
+        assert "sched" in kinds and kinds <= GRAPH_KINDS[mode]
+        blocks = slice(1, None)
+        # the graphs' iterations and drafts are the eager loop's; greedy
+        # streams of the tiny random model repeat, so drafts are accepted
+        assert ((eng.sched_iterations, eng.spec_proposed, eng.spec_accepted)
+                == (ref.sched_iterations, ref.spec_proposed, ref.spec_accepted))
+        assert eng.spec_accepted > 0 or "spec_draft" not in GRAPH_MODES[mode]
+    else:
+        assert kinds == GRAPH_KINDS.get(mode, {"step"})
+        blocks = slice(None)
     assert out_g == out_e
-    assert torch.equal(cache_g["k"], cache_e["k"]) and torch.equal(cache_g["v"], cache_e["v"])
+    assert torch.equal(cache_g["k"][:, blocks], cache_e["k"][:, blocks])
+    assert torch.equal(cache_g["v"][:, blocks], cache_e["v"][:, blocks])
     assert eng.allocator.free_blocks == ENGINE_RCFG["num_blocks"] - 1
 
 
@@ -550,7 +571,7 @@ def test_mixed_fused_program_replays_bit_identical(cuda, dtype):
     assert pa.paged_decode_attention_ref.calls == pa.ragged_prefill_attention_ref.calls == 0
 
 
-@pytest.mark.parametrize("mode", ["fused", "fused_tiled"])
+@pytest.mark.parametrize("mode", ["fused", "fused_tiled", "fused_spec"])
 def test_warmup_then_serving_only_replays(cuda, mode):
     """After warmup() every dispatch of a run replays a graph (no capture,
     no eager run), the decode kernel (and with tiles the prefill kernel)
@@ -577,3 +598,44 @@ def test_warmup_then_serving_only_replays(cuda, mode):
     assert launches == tuple(in_replays[:2])
     out_e, _, launches_e, _ = _graph_run(mode, torch.float32, graphs=False)
     assert out == out_e and launches == launches_e
+
+
+def test_sched_program_replays_bit_identical_and_exits_early(cuda):
+    """chip_smoke.py's scheduler program check on a tiny model at the serving
+    cell's engine sizes: one scheduler program (k = 16, 32 rows, EOS and
+    budgets retiring rows at different steps) captured and replayed gives
+    the bits of its eager run, the steps an eager probe predicts, as many
+    iterations as its deepest row's steps, and the KV of exactly the
+    positions it fed; a replay whose rows all retire by iteration 3 runs at
+    most 3 iterations, one with every row retired at the start none."""
+    import chip_smoke
+    from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
+                                RaggedConfig(**chip_smoke.ENGINE, **chip_smoke.SCHED),
+                                dtype=torch.bfloat16, seed=0)
+    res = chip_smoke.sched_program_check(torch, np, eng)
+    assert res["bit_identical"] and res["steps_as_probed"], res
+    assert res["iterations"] == res["deepest_row_steps"], res
+    assert res["kv_rows_written_outside_schedule"] == res["kv_rows_missing"] == 0, res
+    assert res["full_iterations"] == [16] and max(res["early_exit_iterations"]) <= 3, res
+    assert res["all_retired_iterations"] == [0], res
+    assert pa.paged_decode_attention_ref.calls == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_paged_decode_on_a_verify_batch(cuda, dtype):
+    """Kernel 4 on chip_smoke.py's speculative verify batch (32 sequences x 5
+    consecutive positions, their K/V written first, so each lane reads the
+    keys of the lanes before it) against its plain version."""
+    import chip_smoke
+
+    args = chip_smoke.verify_case(torch, np, dtype)
+    workspace = pa.DecodeWorkspace("cuda", chip_smoke.HQ, chip_smoke.HKV, chip_smoke.D)
+    got = pa.paged_decode_attention(*args, workspace=workspace)
+    want = pa.paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    assert ((got.float() - want.float()).abs() <= tol * (1 + want.float().abs())).all()
+    assert pa.paged_decode_attention.launches == 1

@@ -203,7 +203,7 @@ def test_config_validation():
         _engine(fused_chunk=2, depth=0)
     _engine(depth=0)  # the window is not read without fused chunks
     with pytest.raises(TypeError):
-        RaggedConfig(sched_steps=16)  # not ported
+        RaggedConfig(enable_prefix_cache=True)  # not ported
 
 
 BENCH_RAGGED = dict(device_state=True, decode_run_ahead=chip_smoke.RUN_AHEAD, fused_chunk=16,
