@@ -62,6 +62,23 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    writes held to what it fed, and its early exit timed;
 5e. engine_spec: the same with self-speculative decoding (``spec_draft=4``),
    its acceptance and its streams beside engine_sched's;
+5f. sampling: threefry keys, ``fold_in``, words and uniforms on the card
+   against the same calls on the CPU (identical), and ``sample_tokens``'
+   distribution: 8 cases of temperature, top-k and top-p on and off, 2^18
+   draws each, every category within 5 sigma of its filtered softmax
+   probability and filtered-out ones never drawn;
+5g. serve_trial: ``bench.py:serve_trial_main`` with engine_fused's engine
+   against the dense ``InferenceEngine`` on its weights (padded batches of
+   32, then one request at a time), then arrivals every 0.15 s, under the
+   bench's keys; the dense engine's repeated shapes capture nothing, its
+   replayed graphs match its eager run (bf16 full depth: at most
+   ``DENSE_BF16_STREAMS_DIFFER`` streams differ; fp32 at 2 layers: none),
+   and one dense call is profiled;
+5h. decode_steady: ``bench.py:decode_steady_main`` on the same weights:
+   the device, host-staged and scheduler paths and the dense engine on 16
+   x 96 tokens, the seeded parity matrix of all four dispatch modes
+   (gated in fp32 at 2 layers, counted in bf16 at full depth), speculation
+   on a repeated prompt and the dispatch economy of a staggered run;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -83,6 +100,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -121,8 +139,13 @@ WARMUP_STEPS, TIMED_STEPS = 2, 8
 FB, FS, FD = TRAIN_BATCH, TRAIN_SEQ, D
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _START}),
+          flush=True)
 
 
 def nvidia_smi(*query: str) -> str:
@@ -1310,7 +1333,7 @@ def fused_program_check(torch, np, eng) -> dict:
         for x, x0 in zip(state, init):
             x.copy_(x0)
 
-    fn = eng._get_dev_fused(t, k, nd, nt, mb, staged)
+    fn = eng._get_dev_fused(t, k, nd, nt, mb, staged, (False, False, False))
     eager = fn().clone()
     after = [x.clone() for x in state]
     restore()
@@ -1549,7 +1572,7 @@ def sched_program_check(torch, np, eng) -> dict:
     def set_eos(eos):
         staged[t:2 * t] = torch.tensor(eos, **i32)
 
-    fn = eng._get_dev_sched(k, t, mb, staged)
+    fn = eng._get_dev_sched(k, t, mb, staged, (False, False, False))
     probe = fn()[:k * t].reshape(k, t).cpu().numpy()
     restore()
     eos = np.full(t, -1)
@@ -1564,7 +1587,7 @@ def sched_program_check(torch, np, eng) -> dict:
     after = [x.clone() for x in state]
     restore()
     programs = ProgramCache("cuda")
-    key = ("sched", k, t, mb, 0)
+    key = ("sched", k, t, mb, 0, False, False, False)
     programs.run_loop(key, fn)  # eager on the capture stream, then captured
     restore()
     replayed = programs.run_loop(key, fn)[0].clone()
@@ -1640,6 +1663,500 @@ def parity_sched_phase(torch, np, eng) -> None:
             or g["all_retired_iterations"] != [0] or not g["early_to_full"] < 0.25):
         raise AssertionError(f"sched_program_check: the early exit is not real: {g}")
 
+
+# ---------------------------------------------------------------- sampling
+# sample_tokens' distribution check: a fixed 8-way logit vector, every
+# on/off combination of temperature (0.7; off: 1.0), top-k (3) and top-p
+# (0.8), 2^18 draws under distinct fold_in keys each
+SAMPLE_LOGITS = (2.0, 1.5, 1.0, 0.5, 0.0, -0.5, -1.0, -2.0)
+SAMPLE_DRAWS = 1 << 18
+SAMPLE_CONTROLS = (0.7, 3, 0.8)
+SAMPLE_Z_LIMIT = 5.0
+# keys and shapes of the exact-bits check: 1-D and 2-D, the vocabulary's width
+BITS_SEEDS = (0, 7, 0x5A3D1E, 2**31 - 1)
+BITS_SHAPES = ((1,), (97,), (128256,), (16, 97), (8, 128256))
+
+
+def filtered_probs(np, logits, temperature: float, top_k: int, top_p: float):
+    """The distribution ``sample_tokens`` draws from, in float64 from the
+    definitions: logits / temperature; the ``top_k`` highest kept (0: all);
+    then, over what is kept, the smallest prefix of the descending
+    distribution whose mass reaches ``top_p`` (1: all)."""
+    x = np.asarray(logits, np.float64) / temperature
+    order = np.argsort(-x, kind="stable")
+    kept = np.zeros(x.size, bool)
+    kept[order[:top_k or x.size]] = True
+    if top_p < 1.0:
+        xs = np.where(kept[order], x[order], -np.inf)
+        p = np.exp(xs - xs.max())
+        p /= p.sum()
+        kept[order[(np.cumsum(p) - p) >= top_p]] = False
+    e = np.where(kept, np.exp(x - x[kept].max()), 0.0)
+    return e / e.sum()
+
+
+def sampling_phase(torch, np) -> None:
+    """Exact bits: the port's threefry words, ``fold_in`` and uniform floats
+    on the card equal the same calls on the CPU (integer work). Then the
+    sampler's distribution: every category's share of 2^18 draws within 5
+    sigma of its filtered softmax probability, filtered-out ones never
+    drawn."""
+    from deepspeed_tpu_torch.inference import sampling
+    from deepspeed_tpu_torch.utils import prng
+
+    tiny = float(torch.finfo(torch.float32).tiny)
+    checked = differ = 0
+
+    def same(a, b):
+        nonlocal checked, differ
+        checked += 1
+        differ += int(not torch.equal(a.cpu(), b))
+
+    t0 = time.perf_counter()
+    for seed in BITS_SEEDS:
+        kc, kg = prng.prng_key(seed), prng.prng_key(seed, "cuda")
+        same(kg, kc)
+        for data in (0, 1, 12345, 2**32 - 1):
+            same(prng.fold_in(kg, data), prng.fold_in(kc, data))
+        rows_c = prng.fold_in(kc, torch.arange(16))
+        rows_g = prng.fold_in(kg, torch.arange(16, device="cuda"))
+        same(rows_g, rows_c)
+        same(prng.random_bits(rows_g, (97,)), prng.random_bits(rows_c, (97,)))
+        for shape in BITS_SHAPES:
+            same(prng.random_bits(kg, shape), prng.random_bits(kc, shape))
+            for lo in (0.0, tiny):
+                same(prng.uniform(kg, shape, lo, 1.0).view(torch.int32),
+                     prng.uniform(kc, shape, lo, 1.0).view(torch.int32))
+    torch.cuda.synchronize()
+    bits_s = time.perf_counter() - t0
+
+    n, logits = SAMPLE_DRAWS, torch.tensor(SAMPLE_LOGITS, device="cuda")
+    temp_on, k_on, p_on = SAMPLE_CONTROLS
+    root = prng.prng_key(0x5A3D1E, "cuda")
+    cases, z_max = [], 0.0
+    for combo in range(8):
+        temp = temp_on if combo & 1 else 1.0
+        top_k = k_on if combo & 2 else 0
+        top_p = p_on if combo & 4 else 1.0
+        keys = prng.fold_in(prng.fold_in(root, combo), torch.arange(n, device="cuda"))
+        toks, _ = sampling.sample_tokens(logits.expand(n, -1), keys, temp,
+                                         top_k=top_k or None, top_p=top_p if top_p < 1 else None)
+        counts = torch.bincount(toks.long(), minlength=logits.numel()).cpu().numpy()
+        p = filtered_probs(np, SAMPLE_LOGITS, temp, top_k, top_p)
+        live = p > 0
+        z = (counts[live] - n * p[live]) / np.sqrt(n * p[live] * (1 - p[live]))
+        z_case = float(np.abs(z).max())
+        z_max = max(z_max, z_case)
+        cases.append(dict(temperature=temp, top_k=top_k, top_p=top_p, counts=counts.tolist(),
+                          probs=p.tolist(), max_abs_z=z_case,
+                          filtered_out_drawn=int(counts[~live].sum())))
+    emit("sampling", exact_bits_checks=checked, exact_bits_differ=differ, exact_bits_s=bits_s,
+         bits_seeds=list(BITS_SEEDS), bits_shapes=[list(s) for s in BITS_SHAPES],
+         draws_per_case=n, logits=list(SAMPLE_LOGITS), cases=cases, max_abs_z=z_max,
+         z_limit=SAMPLE_Z_LIMIT)
+    if differ:
+        raise AssertionError(f"sampling: {differ} of {checked} threefry results on the card "
+                             f"differ from the CPU's")
+    if z_max > SAMPLE_Z_LIMIT or any(c["filtered_out_drawn"] for c in cases):
+        raise AssertionError(f"sampling: a category's share is beyond {SAMPLE_Z_LIMIT} sigma "
+                             f"(max |z| {z_max}) or a filtered-out token was drawn: {cases}")
+
+
+# ------------------------------------------------------ the serve trial
+# bench.py:serve_trial_main's accelerator branch: 32 requests of
+# 64/128/256/512-token prompts (the workload of the serving phases), 48 new
+# tokens, the dense baseline in padded batches of max_seqs (32) at the
+# longest prompt, the naive one a request at a time, then arrivals every
+# 0.15 s (bench.py:390)
+MAX_PROMPT = max(PROMPT_LENS)
+STAGGER_S = 0.15
+# streams of the bf16 dense engine's first batch (of 32) whose replayed
+# graphs may pick otherwise than its eager run (PERF.md §2); fp32: none
+DENSE_BF16_STREAMS_DIFFER = 2
+
+
+def pad_batch(np, prompts):
+    """Prompts left-aligned in a [len, MAX_PROMPT] batch (bench.py:347)."""
+    out = np.zeros((len(prompts), MAX_PROMPT), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, :len(p)] = p
+    return out
+
+
+def dense_graph_vs_eager(torch, dense, batch, max_new: int):
+    """The dense engine's tokens for ``batch`` through its replayed graphs
+    and the same call run eagerly (no graph): (graph tokens, eager tokens,
+    streams that differ)."""
+    graph = dense.generate(batch, max_new_tokens=max_new)
+    dense.programs.on_card = False
+    try:
+        eager = dense.generate(batch, max_new_tokens=max_new)
+    finally:
+        dense.programs.on_card = True
+    return graph, eager, int((graph != eager).any(axis=1).sum())
+
+
+def serve_trial_phase(torch, np, llama, engine_mod, rag, params32) -> None:
+    """``bench.py:serve_trial_main`` on the card: ``rag``, engine_fused's
+    engine (ENGINE with the bench's fused configuration, after ``warmup()``),
+    against the dense engine on its weights (padded batches, and one request
+    at a time), then under staggered arrivals. The bench's counts are taken
+    from here on."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = llama.build(cfg)
+    max_seqs = ENGINE["max_seqs"]
+    sched0, padded0 = rag.tokens_scheduled + rag.tokens_padded, rag.tokens_padded
+    prompts = requests(np, cfg.vocab_size)
+    useful = sum(len(p) for p in prompts) + N_REQ * MAX_NEW
+
+    def run_ragged():
+        out = run(rag, prompts, MAX_NEW)
+        if any(len(v) != MAX_NEW for v in out.values()):
+            raise AssertionError("serve_trial: a ragged request did not return 48 tokens")
+        torch.cuda.synchronize()
+
+    def timed(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run_ragged()
+    ragged_s = timed(run_ragged)
+    dense = engine_mod.InferenceEngine(spec, dtype=torch.bfloat16, params=rag.params)
+    captures = {}
+
+    def run_dense():
+        for i in range(0, N_REQ, max_seqs):
+            dense.generate(pad_batch(np, prompts[i:i + max_seqs]), max_new_tokens=MAX_NEW)
+
+    def run_naive():
+        for p in prompts:
+            dense.generate(pad_batch(np, [p]), max_new_tokens=MAX_NEW)
+
+    run_dense()  # captures the (32, 512, 48) programs
+    c0 = dense.programs.captures
+    dense_s = timed(run_dense)
+    captures["batch"] = dense.programs.captures - c0
+    dense.generate(pad_batch(np, [prompts[0]]), max_new_tokens=MAX_NEW)  # captures (1, 512, 48)
+    c0 = dense.programs.captures
+    naive_s = timed(run_naive)
+    captures["naive"] = dense.programs.captures - c0
+    sched = rag.tokens_scheduled + rag.tokens_padded - sched0
+    padded_two_runs = rag.tokens_padded - padded0
+
+    arrivals = [i * STAGGER_S for i in range(N_REQ)]
+
+    def run_ragged_staggered(tag):
+        lat = {}
+        t0 = time.perf_counter()
+        nxt = 0
+        while nxt < N_REQ or rag.has_work:
+            now = time.perf_counter() - t0
+            while nxt < N_REQ and arrivals[nxt] <= now:
+                rag.put((tag, nxt), prompts[nxt], max_new_tokens=MAX_NEW)
+                nxt += 1
+            if rag.has_work:
+                done_before = rag.finished_uids
+                rag.step()
+                for uid in rag.finished_uids - done_before:
+                    lat[uid] = (time.perf_counter() - t0) - arrivals[uid[1]]
+            elif nxt < N_REQ:
+                time.sleep(max(0.0, arrivals[nxt] - (time.perf_counter() - t0)))
+        return lat
+
+    def run_dense_staggered():
+        lat = {}
+        t0 = time.perf_counter()
+        nxt = 0
+        while nxt < N_REQ:
+            now = time.perf_counter() - t0
+            if arrivals[nxt] > now:
+                time.sleep(arrivals[nxt] - now)
+            now = time.perf_counter() - t0
+            wave = []
+            while nxt < N_REQ and arrivals[nxt] <= now and len(wave) < max_seqs:
+                wave.append(nxt)
+                nxt += 1
+            batch = pad_batch(np, [prompts[i] for i in wave]
+                              + [prompts[0]] * (max_seqs - len(wave)))
+            dense.generate(batch, max_new_tokens=MAX_NEW)
+            fin = time.perf_counter() - t0
+            for i in wave:
+                lat[i] = fin - arrivals[i]
+        return lat
+
+    run_ragged_staggered("w")
+    disp0, tok0 = rag.dispatch_count, rag.tokens_emitted
+    rag_lat = list(run_ragged_staggered("s").values())
+    stag_dispatches = rag.dispatch_count - disp0
+    stag_generated = rag.tokens_emitted - tok0
+    c0 = dense.programs.captures
+    den_lat = list(run_dense_staggered().values())
+    captures["staggered"] = dense.programs.captures - c0
+    rag_mean, den_mean = sum(rag_lat) / len(rag_lat), sum(den_lat) / len(den_lat)
+    first = pad_batch(np, prompts[:max_seqs])
+    # where a dense (32, 512, 48) call spends the card's time
+    profile_phase(torch, lambda: dense.generate(first, max_new_tokens=MAX_NEW),
+                  phase="profile_dense_serve")
+
+    # the dense engine's graphs against its eager run: the first batch,
+    # bf16 at full depth, then fp32 at 2 layers
+    graph, _, differ_bf16 = dense_graph_vs_eager(torch, dense, first, MAX_NEW)
+    dense_programs = dense.programs.graphs
+    leaked = rag.allocator.free_blocks != rag.cfg.num_blocks - 1
+    # the bench divides the padding of every run, the staggered ones too, by
+    # the tokens of the first two (bench.py:420,452)
+    padding_frac = (rag.tokens_padded - padded0) / max(sched, 1)
+    peak = torch.cuda.max_memory_allocated()
+    del dense, rag
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense32 = engine_mod.InferenceEngine(llama.build(params32[0]), dtype=torch.float32,
+                                         params=params32[1])
+    _, _, differ_fp32 = dense_graph_vs_eager(torch, dense32, first, MAX_NEW)
+    fp32_ok = differ_fp32 == 0 and dense32.programs.captures == 2
+    del dense32
+    gc.collect()
+    torch.cuda.empty_cache()
+    in_vocab = bool(((graph[:, MAX_PROMPT:] >= 0) & (graph[:, MAX_PROMPT:] < cfg.vocab_size))
+                    .all())
+    emit("serve_trial", model="llama3_8b", dtype="bfloat16", source="bench.py:252-479",
+         ragged_tokens_per_s=useful / ragged_s, dense_tokens_per_s=useful / dense_s,
+         naive_tokens_per_s=useful / naive_s, ragged_vs_dense=dense_s / ragged_s,
+         ragged_vs_naive=naive_s / ragged_s,
+         ragged_padding_frac=padding_frac,
+         ragged_padding_frac_of_the_two_runs=padded_two_runs / max(sched, 1),
+         staggered_ragged_mean_latency_s=rag_mean, staggered_dense_mean_latency_s=den_mean,
+         staggered_latency_ratio=den_mean / rag_mean,
+         staggered_dispatches=stag_dispatches,
+         staggered_dispatches_per_token=stag_dispatches / max(stag_generated, 1),
+         serve_reqs=N_REQ, serve_useful_tokens=useful, serve_max_new=MAX_NEW,
+         ragged_s=ragged_s, dense_s=dense_s, naive_s=naive_s, stagger_interval_s=STAGGER_S,
+         dense_captures_on_repeat=captures, dense_programs=dense_programs,
+         dense_bf16_streams_differ_from_eager=differ_bf16,
+         dense_bf16_streams_differ_limit=DENSE_BF16_STREAMS_DIFFER,
+         dense_fp32_2_layers_identical_to_eager=fp32_ok,
+         max_memory_allocated_bytes=peak, nvidia_smi=nvidia_smi("name", "power.limit"))
+    if any(captures.values()):
+        raise AssertionError(f"serve_trial: a repeated dense shape captured again: {captures}")
+    if not in_vocab:
+        raise AssertionError("serve_trial: a dense token outside the vocabulary")
+    if differ_bf16 > DENSE_BF16_STREAMS_DIFFER or not fp32_ok:
+        raise AssertionError(f"serve_trial: dense graphs vs eager: {differ_bf16} bf16 streams "
+                             f"differ (limit {DENSE_BF16_STREAMS_DIFFER}), fp32 identical "
+                             f"{fp32_ok}")
+    if len(rag_lat) != N_REQ or len(den_lat) != N_REQ:
+        raise AssertionError("serve_trial: a staggered request did not finish")
+    if leaked:
+        raise AssertionError("serve_trial: KV blocks leaked")
+
+
+# ----------------------------------------------------- steady decode
+# bench.py:decode_steady_main's accelerator branch (:505-512): 16 requests,
+# 64-token prompts, 96 new tokens; max_seqs 16, budget 256, blocks of 32,
+# run-ahead 32, fused chunks of 16 three deep, tiles of 64; the scheduler at
+# 16 steps, the staggered economy run at 128 steps and 190 new tokens
+STEADY = dict(n_req=16, prompt_len=64, max_new=96, max_seqs=16, budget=256, block=32,
+              ahead=32, fused=16, depth=3, tile=64, sched_k=16, econ_k=128, econ_new=190)
+STEADY_MODES = {"plain": dict(decode_run_ahead=0, prefill_tile=0, fused_chunk=0),
+                "tiled": dict(decode_run_ahead=0, fused_chunk=0),
+                "run_ahead": dict(prefill_tile=0, fused_chunk=0),
+                "fused": {}}
+
+
+def steady_build(ragged, spec, dtype, params, device_state: bool, **over):
+    s = STEADY
+    mbs = -(-(s["prompt_len"] + s["max_new"]) // s["block"])
+    kw = dict(max_tokens_per_step=s["budget"], max_seqs=s["max_seqs"], block_size=s["block"],
+              num_blocks=s["max_seqs"] * mbs + 1, max_blocks_per_seq=mbs,
+              decode_run_ahead=s["ahead"], prefill_tile=s["tile"], fused_chunk=s["fused"],
+              pipeline_depth=s["depth"], device_state=device_state)
+    kw.update(over)
+    return ragged.RaggedInferenceEngine(spec, ragged.RaggedConfig(**kw), dtype=dtype,
+                                        params=params, seed=0)
+
+
+def parity_run(eng, prompts):
+    """bench.py:582-587: three prompts, the first greedy, the others seeded
+    (7 + i) at temperature 0.9, top-k 20, top-p 0.9; 6 tokens each."""
+    for i, p in enumerate(prompts[:3]):
+        kw = {} if i == 0 else dict(temperature=0.9, top_k=20, top_p=0.9, seed=7 + i)
+        eng.put(i, p, max_new_tokens=6, **kw)
+    return eng.generate_all()
+
+
+def parity_matrix(ragged, spec, dtype, params, prompts):
+    """bench.py:589-602: in each dispatch mode, the device path, the
+    scheduler and the scheduler with speculation against the host-staged
+    streams: (streams equal to host-staged, of 3) by mode and variant."""
+    k = STEADY["sched_k"]
+    res = {}
+    for name, over in STEADY_MODES.items():
+        base = parity_run(steady_build(ragged, spec, dtype, params, False, **over), prompts)
+        res[name] = {}
+        for variant, extra in (("device", {}), ("sched", dict(sched_steps=k)),
+                               ("spec", dict(sched_steps=k, spec_draft=4))):
+            got = parity_run(steady_build(ragged, spec, dtype, params, True, **over, **extra),
+                             prompts)
+            res[name][variant] = sum(got[i] == base[i] for i in base)
+    gc.collect()
+    return res
+
+
+def decode_steady_phase(torch, np, llama, ragged, engine_mod, pa, weights, params32) -> dict:
+    """``bench.py:decode_steady_main`` on the card, on the slice's Llama-3-8B
+    (``weights``): the device path, the host-staged path and the scheduler
+    on the steady workload, the dense engine on the same batch, the parity
+    matrix (gated in fp32 at 2 layers, ``params32``; reported in bf16 at
+    full depth), speculation on a repetitive prompt and the dispatch economy
+    of a staggered run. Returns the scheduler run's kernel launches."""
+    s = STEADY
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = llama.build(cfg)
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (s["prompt_len"],), dtype=np.int32)
+               for _ in range(s["n_req"])]
+
+    def run_tagged(eng, tag):
+        for i, p in enumerate(prompts):
+            eng.put((tag, i), p, max_new_tokens=s["max_new"])
+        out = eng.generate_all()
+        torch.cuda.synchronize()
+        return out
+
+    def measure(device_state, **over):
+        """bench.py:538-560: a warm-up run, then the measured run with the
+        dispatch-overhead meters and the launch counts zeroed just before
+        it. Returns (the bench's stats, tokens by request, kernel launches,
+        plain-version calls, whether a stream, a token or the pool is
+        wrong)."""
+        eng = steady_build(ragged, spec, bf16, weights, device_state, **over)
+        run_tagged(eng, "warm")
+        eng.host_stage_ns = eng.readback_ns = eng.h2d_bytes = 0
+        d0 = eng.dispatch_count
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        out = run_tagged(eng, "run")
+        dt = time.perf_counter() - t0
+        launches = {"paged_decode": pa.paged_decode_attention.launches,
+                    "paged_prefill": pa.ragged_prefill_attention.launches}
+        plain = pa.paged_decode_attention_ref.calls + pa.ragged_prefill_attention_ref.calls
+        disp = max(eng.dispatch_count - d0, 1)
+        toks = sum(len(v) for v in out.values())
+        bad = (any(len(v) != s["max_new"] or not all(0 <= t < cfg.vocab_size for t in v)
+                   for v in out.values())
+               or eng.allocator.free_blocks != eng.cfg.num_blocks - 1)
+        stats = {"tokens_per_s": toks / dt,
+                 "host_stage_ms_per_step": eng.host_stage_ns / disp / 1e6,
+                 "readback_ms_per_step": eng.readback_ns / disp / 1e6,
+                 "h2d_bytes_per_step": eng.h2d_bytes / disp, "dispatches": disp, "wall_s": dt,
+                 "graph_replays": eng.programs.replays, "graph_captures": eng.programs.captures}
+        del eng
+        gc.collect()
+        return stats, {uid[1]: v for uid, v in out.items()}, launches, plain, bad
+
+    results, outs, checks = {}, {}, {}
+    for name, ds, over in (("dev", True, {}), ("host", False, {}),
+                           ("sch", True, dict(sched_steps=s["sched_k"]))):
+        results[name], outs[name], *checks[name] = measure(ds, **over)
+    sched_launches, sched_plain = checks["sch"][0], checks["sch"][1]
+
+    dense = engine_mod.InferenceEngine(spec, dtype=bf16, params=weights)
+    batch = np.stack(prompts)
+    dense.generate(batch, max_new_tokens=s["max_new"])  # captures
+    c0 = dense.programs.captures
+    t0 = time.perf_counter()
+    dense.generate(batch, max_new_tokens=s["max_new"])
+    dense_tok_s = s["n_req"] * s["max_new"] / (time.perf_counter() - t0)
+    dense_recaptures = dense.programs.captures - c0
+    del dense
+    gc.collect()
+
+    parity32 = parity_matrix(ragged, llama.build(params32[0]), torch.float32, params32[1],
+                             prompts)
+    parity16 = parity_matrix(ragged, spec, bf16, weights, prompts)
+
+    spec_eng = steady_build(ragged, spec, bf16, weights, True, sched_steps=s["sched_k"],
+                            spec_draft=4)
+    pat = list(rng.integers(0, cfg.vocab_size, (5,))) * 4
+    spec_eng.put("rep", np.asarray(pat, np.int32), max_new_tokens=s["max_new"])
+    spec_eng.generate_all()
+    spec_prop, spec_acc = spec_eng.spec_proposed, spec_eng.spec_accepted
+    del spec_eng
+
+    mbs_econ = -(-(s["prompt_len"] + s["econ_new"]) // s["block"])
+    econ = ragged.RaggedInferenceEngine(spec, ragged.RaggedConfig(
+        max_tokens_per_step=s["budget"], max_seqs=s["max_seqs"], block_size=s["block"],
+        num_blocks=s["max_seqs"] * mbs_econ + 1, max_blocks_per_seq=mbs_econ,
+        sched_steps=s["econ_k"]), dtype=bf16, params=weights, seed=0)
+    fed, d0, e0 = 0, None, None
+    t0 = time.perf_counter()
+    for _ in range(100000):
+        if fed < s["n_req"]:
+            econ.put(fed, prompts[fed], max_new_tokens=s["econ_new"])
+            fed += 1
+        if not econ.has_work:
+            break
+        econ.step()
+        if (d0 is None and fed == s["n_req"] and not econ._queued
+                and all(q.in_decode for q in econ._running.values())):
+            d0, e0 = econ.dispatch_count, econ.tokens_emitted
+    econ.drain()
+    econ_s = time.perf_counter() - t0
+    econ_disp = econ.dispatch_count - d0
+    econ_toks = max(econ.tokens_emitted - e0, 1)
+    econ_captures = econ.programs.captures
+    del econ
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev, host, sch = results["dev"], results["host"], results["sch"]
+    outputs_match = outs["dev"] == outs["host"] and outs["sch"] == outs["host"]
+    emit("decode_steady", model="llama3_8b", dtype="bfloat16", source="bench.py:482-690",
+         workload=STEADY,
+         steady_ragged_tokens_per_s=sch["tokens_per_s"],
+         steady_ragged_no_sched_tokens_per_s=dev["tokens_per_s"],
+         steady_host_staged_tokens_per_s=host["tokens_per_s"],
+         steady_dense_tokens_per_s=dense_tok_s,
+         steady_ragged_vs_dense=sch["tokens_per_s"] / dense_tok_s,
+         steady_ragged_vs_dense_no_sched=dev["tokens_per_s"] / dense_tok_s,
+         ragged_vs_dense=sch["tokens_per_s"] / dense_tok_s,
+         steady_staging_reduction=host["host_stage_ms_per_step"]
+         / max(dev["host_stage_ms_per_step"], 1e-9),
+         steady_device_state=dev, steady_host_staged=host, steady_sched=sch,
+         steady_sched_steps=s["sched_k"],
+         steady_dispatches_per_token=sch["dispatches"] / max(s["n_req"] * s["max_new"], 1),
+         staggered_dispatches_per_token=econ_disp / econ_toks,
+         staggered_econ_dispatches=econ_disp, staggered_econ_tokens=econ_toks,
+         staggered_econ_s=econ_s, staggered_econ_captures=econ_captures,
+         steady_outputs_match=outputs_match,
+         streams_equal_to_host_staged_of_16={
+             name: sum(outs[name][i] == outs["host"][i] for i in outs["host"])
+             for name in ("dev", "sch")},
+         steady_parity={m: v["device"] == 3 for m, v in parity16.items()},
+         steady_sched_parity={m: v["sched"] == 3 for m, v in parity16.items()},
+         steady_spec_parity={m: v["spec"] == 3 for m, v in parity16.items()},
+         parity_bf16_streams_equal_of_3=parity16, parity_fp32_2_layers_streams_equal_of_3=parity32,
+         steady_spec_proposed=spec_prop, steady_spec_accepted=spec_acc,
+         steady_spec_acceptance_rate=spec_acc / max(spec_prop, 1),
+         steady_reqs=s["n_req"], steady_max_new=s["max_new"],
+         sched_kernel_launches=sched_launches, sched_plain_version_calls=sched_plain,
+         dense_captures_on_repeat=dense_recaptures,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if any(c[2] for c in checks.values()):
+        raise AssertionError(f"decode_steady: a run returned a wrong-length stream, a token "
+                             f"outside the vocabulary, or leaked blocks: {checks}")
+    if not all(v == 3 for modes in parity32.values() for v in modes.values()):
+        raise AssertionError(f"decode_steady: fp32 seeded streams of the device, scheduler or "
+                             f"speculation path differ from the host-staged ones: {parity32}")
+    if min(sched_launches.values()) <= 0 or sched_plain:
+        raise AssertionError(f"decode_steady: the scheduler run launched {sched_launches} and "
+                             f"called plain attention {sched_plain} times")
+    if dense_recaptures:
+        raise AssertionError("decode_steady: the dense engine's repeated shape captured again")
+    return sched_launches
 
 # ------------------------------------------------------------------- train
 def train_cfg(llama, layers: int):
@@ -1837,6 +2354,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from deepspeed_tpu_torch.inference import engine as dense_mod
     from deepspeed_tpu_torch.inference import ragged
     from deepspeed_tpu_torch.models import llama
     from deepspeed_tpu_torch.ops.cuda import _build
@@ -1885,6 +2403,8 @@ def main() -> int:
     fused_launches, fused_in_replays, eng, fused_run = engine_fused_phase(
         torch, np, llama, ragged, pa, device_run)
     parity_fused_phase(torch, np, eng)
+    # engine_fused's engine, and its weights, serve the serve and steady-decode trials
+    fused_eng, weights = eng, eng.params
     del eng
     torch.cuda.empty_cache()
     # 5d. the multi-step scheduler on the bench's configuration, its program
@@ -1897,6 +2417,23 @@ def main() -> int:
     spec_launches, _, eng, _ = engine_sched_phase(torch, np, llama, ragged, pa, fused_run,
                                                   sched_run=sched_tokens)
     del eng
+    torch.cuda.empty_cache()
+    # 5f. seeded sampling: exact threefry bits and the sampler's distribution
+    sampling_phase(torch, np)
+    # 5g. bench.py's serve trial (ragged vs dense vs naive, staggered) and
+    # 5h. its steady-decode trial, on engine_fused's weights; their fp32
+    # checks on 2 layers at full width
+    cfg2 = dataclasses.replace(llama.LlamaConfig.llama3_8b(), num_layers=2)
+    params32 = (cfg2, llama.init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
+                                        torch.float32, "cuda"))
+    serve_trial_phase(torch, np, llama, dense_mod, fused_eng, params32)
+    del fused_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    steady_launches = decode_steady_phase(torch, np, llama, ragged, dense_mod, pa, weights,
+                                          params32)
+    del weights, params32
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 6. the training path, and 7. its parity
@@ -1926,6 +2463,7 @@ def main() -> int:
                             launches_engine_fused_in_replays=fused_in_replays.get(name),
                             launches_engine_sched=sched_launches.get(name),
                             launches_engine_spec=spec_launches.get(name),
+                            launches_decode_steady_sched=steady_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

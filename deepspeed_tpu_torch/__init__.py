@@ -5,7 +5,9 @@ name; the JAX package stays the reference the tests hold this one against.
 This package imports ``torch``, ``numpy`` and the standard library only.
 
 Two slices are ported. Serving: ``RaggedInferenceEngine`` over the Llama
-family, with the paged-decode and tiled-prefill attention kernels. Training:
+family, with the paged-decode and tiled-prefill attention kernels, the
+dense-cache ``InferenceEngine`` (``init_inference``), and seeded sampling
+with the reference's exact threefry draws. Training:
 ``initialize`` -> ``Engine.train_batch`` (AdamW/Adam/SGD with optax
 semantics, bf16 compute over fp32 masters, clipping, activation
 checkpointing, one device), with the flash-attention forward, dK/dV and dQ
@@ -27,6 +29,8 @@ _LAZY = {
     "RaggedConfig": ("deepspeed_tpu_torch.inference.ragged", "RaggedConfig"),
     "RaggedInferenceEngine": ("deepspeed_tpu_torch.inference.ragged",
                               "RaggedInferenceEngine"),
+    "InferenceEngine": ("deepspeed_tpu_torch.inference.engine", "InferenceEngine"),
+    "init_inference": ("deepspeed_tpu_torch.inference.engine", "init_inference"),
     "llama": ("deepspeed_tpu_torch.models.llama", None),
 }
 

@@ -1,0 +1,209 @@
+"""Dense-cache inference engine (counterpart of
+``deepspeed_tpu/inference/engine.py``): padded-batch generation over a
+``ModelSpec``'s ``init_cache_fn`` / ``decode_fn``, on one device.
+
+``generate`` keys its work by the reference's statics, (batch, prompt
+length, new tokens, sampled?, penalized?, top-k?, top-p?), and builds per
+key one program pair over buffers it keeps: a prefill (the cache zeroed,
+the prompt's forward, the occurrence mask over the prompt) and a decode
+step (pick the next token with key ``fold_in(PRNGKey(seed), i)``, mark it
+seen, run it through the model at position ``T + i``, store it). ``i`` and
+the position are device scalars, so one decode step serves every
+position. On a CUDA device each program runs eagerly the first time and
+is captured as a CUDA graph (``inference/cuda_graphs.py``), and replayed
+from then on, as the reference compiles one program a signature; the
+sampling values (temperature, top-k, top-p, penalty, seed) are written
+into the buffers, so changing them captures nothing.
+
+Not ported yet, and refused: tensor parallelism (``ROADMAP.md`` queue 1
+item 12), weight quantization (item 6) and checkpoint loading (item 10).
+The telemetry span waits for item 14.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
+from deepspeed_tpu_torch.inference.ragged import cast_params
+from deepspeed_tpu_torch.inference.sampling import sample_tokens, update_seen
+from deepspeed_tpu_torch.models.api import ModelSpec
+from deepspeed_tpu_torch.utils import prng
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+
+class _Generation:
+    """One statics key's buffers and its two programs; see the module
+    docstring. The programs refer to the engine's tensors, not to the
+    engine, which keeps them."""
+
+    def __init__(self, spec: ModelSpec, params, dtype, device, b: int, t: int, n: int,
+                 sample: bool, use_penalty: bool, has_tk: bool, has_tp: bool):
+        self.spec, self.params = spec, params
+        self.t, self.sample, self.use_penalty = t, sample, use_penalty
+        self.has_tk, self.has_tp = has_tk, has_tp
+        vocab = spec.config.vocab_size
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.tokens = torch.zeros((b, t), **i32)
+        self.rng = torch.zeros(2, dtype=torch.int64, device=device)
+        self.temperature, self.top_p, self.penalty = (torch.zeros((), **f32) for _ in range(3))
+        self.top_k = torch.zeros((), **i32)
+        self.cache = spec.init_cache_fn(b, t + n, dtype, device)
+        self.last = torch.zeros((b, vocab), **f32)
+        self.seen = torch.zeros((b, vocab if use_penalty else 1), dtype=torch.bool,
+                                device=device)
+        self.i = torch.zeros((), dtype=torch.int64, device=device)
+        self.out = torch.zeros((b, n), **i32)
+        self.rows = torch.arange(b, device=device)[:, None]
+
+    def prefill(self) -> torch.Tensor:
+        for buf in self.cache.values():
+            buf.zero_()
+        logits, _ = self.spec.decode_fn(self.params, self.tokens, self.cache, 0)
+        self.last.copy_(logits[:, self.t - 1].float())
+        if self.use_penalty:  # everything in the prompt counts as seen
+            self.seen.zero_()
+            self.seen.index_put_((self.rows, self.tokens.long()),
+                                 torch.ones_like(self.tokens, dtype=torch.bool))
+        self.i.zero_()
+        return self.last
+
+    def _pick(self, key) -> torch.Tensor:
+        if not self.sample and not self.use_penalty:
+            return torch.argmax(self.last, dim=-1).to(torch.int32)
+        return sample_tokens(
+            self.last, key, self.temperature if self.sample else 0.0,
+            top_k=self.top_k if self.has_tk else None,
+            top_p=self.top_p if self.has_tp else None,
+            repetition_penalty=self.penalty if self.use_penalty else None,
+            seen_mask=self.seen if self.use_penalty else None)[0]
+
+    def step(self) -> torch.Tensor:
+        tok = self._pick(prng.fold_in(self.rng, self.i))
+        if self.use_penalty:
+            update_seen(self.seen, tok)
+        logits, _ = self.spec.decode_fn(self.params, tok[:, None], self.cache, self.t + self.i)
+        self.last.copy_(logits[:, 0].float())
+        self.out.index_copy_(1, self.i.reshape(1), tok[:, None])
+        self.i.add_(1)
+        return self.out
+
+
+class InferenceEngine:
+    """Greedy and sampled autoregressive generation over a ``ModelSpec``
+    with dense-cache hooks. Runs on ``cuda:0`` unless ``device`` names
+    another device; without a CUDA device and without ``device`` it
+    raises. ``params`` (the stacked layout of ``models/llama.py``) are used
+    in place when they already have ``dtype`` and lie on the device, so
+    engines can share one weight set."""
+
+    def __init__(self, model: ModelSpec, mp_size: int = 1, dtype=torch.bfloat16,
+                 params: Any = None, checkpoint: str | None = None, seed: int = 0,
+                 quantize_bits: int = 0, quantize_block: int = 256, quant: str = "off",
+                 device=None):
+        if mp_size > 1:
+            raise NotImplementedError(
+                "tensor-parallel inference (mp_size > 1) is not ported yet: "
+                "ROADMAP.md queue 1 item 12 (parallelism beyond ZeRO)")
+        if quantize_bits or quant != "off":
+            raise NotImplementedError(
+                "weight and KV quantization (quantize_bits, quant) is not ported yet: "
+                "ROADMAP.md queue 1 item 6 (low-bit serving)")
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "checkpoint loading is not ported yet: ROADMAP.md queue 1 item 10 "
+                "(multi-GPU training and checkpoints)")
+        del quantize_block
+        self.device = resolve_device(device)
+        self.spec = model
+        if self.spec.decode_fn is None or self.spec.init_cache_fn is None:
+            raise ValueError(f"model {self.spec.name} has no decode/cache support")
+        self.dtype = dtype
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.spec.init_fn(gen, dtype, self.device)
+        self.params = cast_params(params, dtype, self.device)
+        self.programs = ProgramCache(self.device)
+        self._gen_cache: dict = {}
+        log_dist(f"InferenceEngine: model={self.spec.name} device={self.device} "
+                 f"dtype={str(dtype).replace('torch.', '')}", ranks=[0])
+
+    def load_checkpoint(self, ckpt_dir: str) -> None:
+        raise NotImplementedError(
+            "checkpoint loading is not ported yet: ROADMAP.md queue 1 item 10 "
+            "(multi-GPU training and checkpoints)")
+
+    def generate(self, input_ids, max_new_tokens: int = 64, temperature: float = 0.0,
+                 seed: int = 0, top_k: int = 0, top_p: float = 1.0,
+                 repetition_penalty: float = 1.0) -> np.ndarray:
+        """[B, T] prompt -> [B, T + max_new_tokens] (greedy when temperature
+        is 0). Each (B, T, N, sampled?, penalized?, top-k?, top-p?) key
+        builds its programs once (on the card: captures them) and replays
+        them after; the sampling values are data, so changing them builds
+        nothing."""
+        input_ids = np.asarray(input_ids)
+        b, t = input_ids.shape
+        sample = temperature > 0.0
+        use_penalty = repetition_penalty != 1.0
+        has_tk, has_tp = top_k > 0, top_p < 1.0
+        key = (b, t, max_new_tokens, sample, use_penalty, has_tk, has_tp)
+        gen = self._gen_cache.get(key)
+        if gen is None:
+            gen = self._gen_cache[key] = _Generation(self.spec, self.params, self.dtype,
+                                                     self.device, *key)
+        gen.tokens.copy_(torch.from_numpy(input_ids.astype(np.int32)))
+        gen.rng.copy_(prng.prng_key(seed))
+        gen.temperature.fill_(max(temperature, 1e-6))
+        gen.top_k.fill_(top_k)
+        gen.top_p.fill_(top_p)
+        gen.penalty.fill_(repetition_penalty)
+        self.programs.run(("prefill", *key), gen.prefill)
+        for _ in range(max_new_tokens):
+            self.programs.run(("decode", *key), gen.step)
+        toks = gen.out.cpu().numpy()
+        return np.concatenate([input_ids, toks], axis=1)
+
+    @torch.no_grad()
+    def forward(self, input_ids) -> torch.Tensor:
+        """Plain logits forward: [B, S] tokens -> [B, S, V]."""
+        return self.spec.forward_fn(self.params,
+                                    torch.as_tensor(np.asarray(input_ids), device=self.device))
+
+    __call__ = forward
+
+
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp16": torch.float16,
+           "float16": torch.float16, "half": torch.float16, "fp32": torch.float32,
+           "float32": torch.float32, "float": torch.float32}
+
+
+def init_inference(model: ModelSpec, config: dict | None = None, **kwargs) -> InferenceEngine:
+    """``deepspeed.init_inference`` (the reference's ``:287``): the config
+    dict, updated by ``kwargs``, names ``tensor_parallel`` / ``mp_size``,
+    ``dtype`` (a string or a torch dtype; unknown names give bf16, as in
+    the reference), ``params``, ``checkpoint``, the quantization knobs and
+    ``device``. ``dtype="int8"`` and a ``quant`` section ask for weight
+    quantization, which is refused (queue 1 item 6)."""
+    config = dict(config or {})
+    config.update(kwargs)
+    tp = config.get("tensor_parallel", {})
+    mp_size = tp.get("tp_size", config.get("mp_size", 1)) if isinstance(tp, dict) else int(tp)
+    dtype_str = str(config.get("dtype", "bf16")).replace("torch.", "")
+    bits = 8 if dtype_str in ("int8", "qint8") else 0
+    quant = config.get("quant")
+    quant_str = "off"
+    if isinstance(quant, str):
+        quant_str = quant
+    elif isinstance(quant, dict) and quant.get("enabled", True):
+        bits = int((quant.get("weight") or {}).get("num_bits", bits or 8))
+    return InferenceEngine(
+        model, mp_size=mp_size, dtype=_DTYPES.get(dtype_str, torch.bfloat16),
+        params=config.get("params"), checkpoint=config.get("checkpoint"),
+        quantize_bits=int(config.get("quantize_bits", bits)),
+        quantize_block=int(config.get("quantize_block", 256)), quant=quant_str,
+        device=config.get("device"))

@@ -10,8 +10,8 @@ kernels (``ops/cuda``). The scheduler pads the token batch to a power-of-2
 bucket onto scratch block 0 through the all-zero padding row ``max_seqs``.
 
 Two dispatch paths, as in the JAX engine, with the same scheduling decision
-for decision (buckets, admission order, tile plan, padding), so greedy
-tokens agree with the JAX engine's in each:
+for decision (buckets, admission order, tile plan, padding), so tokens agree
+with the JAX engine's in each, greedy and seeded:
 
 - device-resident state (``RaggedConfig(device_state=True)``, the default):
   per-slot rows (last token, next position, sampling parameters) and the
@@ -24,7 +24,7 @@ tokens agree with the JAX engine's in each:
   slot, position and table arrays and reads its tokens back at once.
 
 Both run plain or tiled SplitFuse steps, and with ``decode_run_ahead`` K
-greedy decode steps in one dispatch when every running sequence decodes.
+decode steps in one dispatch when every running sequence decodes.
 With ``fused_chunk`` >= 2 every turn goes through fused mixed chunks
 instead: one program runs a mixed SplitFuse step and then up to
 ``fused_chunk`` - 1 decode steps for its decode rows, and up to
@@ -42,13 +42,20 @@ under conditional nodes, ``inference/cuda_graphs.py``). With ``spec_draft``
 D > 0 each iteration also drafts up to D tokens a row from the row's own
 token history (prompt lookup, ``inference/sampling.py``) and verifies them
 in the same forward. Verification is exact-match against the model's own
-greedy picks, so the output is token-identical to plain decoding; for
-sampled requests that holds only once seeded sampling is ported (``put``
-refuses ``temperature > 0`` until then). With ``fused_chunk`` set, mixed
-waves run as fused chunks and all-decode turns as scheduler programs.
+picks, so the output is token-identical to plain decoding, greedy and
+seeded. With ``fused_chunk`` set, mixed waves run as fused chunks and
+all-decode turns as scheduler programs.
 
-The prefix cache, KV tiers, low-bit pools, handoff, telemetry, fault
-injection and seeded sampling are not ported yet (``ROADMAP.md``).
+Every program picks the reference's way: greedy, or per-request sampling
+(temperature, top-k, top-p) where token ``g`` of a request with effective
+seed ``s`` draws from ``fold_in(fold_in(PRNGKey(0x5A3D1E), s), g)``
+(``inference/sampling.py``, ``utils/prng.py``), so a seeded request gives
+the same tokens in every dispatch mode and on the JAX engine. Whether a
+batch samples, and whether it filters by top-k or top-p, are part of each
+program's key, as they are static in the JAX engine's.
+
+The prefix cache, KV tiers, low-bit pools, handoff, telemetry and fault
+injection are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -62,10 +69,15 @@ import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.inference.cuda_graphs import LoopProgram, ProgramCache
-from deepspeed_tpu_torch.inference.sampling import accept_drafts, propose_ngram_drafts
+from deepspeed_tpu_torch.inference.sampling import (accept_drafts, per_request_keys,
+                                                    propose_ngram_drafts, sample_tokens)
 from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.models.paged import speculative_lane_layout
+from deepspeed_tpu_torch.utils import prng
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+# the fixed root of every request's sampling keys (the JAX engine's)
+SAMPLE_ROOT = 0x5A3D1E
 
 
 class BlockedAllocator:
@@ -305,6 +317,12 @@ class _SeqState:
     # dispatches in flight (not yet reconciled) that reference this
     # sequence: its blocks and slot are released only when they drain
     refs: int = 0
+    # sampling controls (0 temperature: greedy) and the effective seed:
+    # token g draws from fold_in(fold_in(root, seed), g)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
 
     def token_at(self, p: int) -> int:
         if p < len(self.prompt):
@@ -324,12 +342,38 @@ class _SeqState:
         return bool(self.generated) and self.generated[-1] == self.eos_token_id
 
 
-def _cast_params(tree, dtype: torch.dtype, device: torch.device):
+def cast_params(tree, dtype: torch.dtype, device: torch.device):
+    """Floating leaves in ``dtype`` on ``device``; a leaf already there is
+    kept as is, not copied (engines can share one weight set)."""
     if isinstance(tree, dict):
-        return {k: _cast_params(v, dtype, device) for k, v in tree.items()}
+        return {k: cast_params(v, dtype, device) for k, v in tree.items()}
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device=device)
+
+
+def make_pick(sampled: bool, has_tk: bool, has_tp: bool, root, seeds, temp, topk, topp):
+    """The pick of a program whose batch flags are ``(sampled, has_tk,
+    has_tp)`` (the JAX programs' statics): ``pick(logits, gen_idx)`` ->
+    [T] int32, the argmax when nothing samples, else ``sample_tokens``
+    with per-row keys ``per_request_keys(root, seeds, gen_idx)`` and the
+    per-row controls (a filter the batch does not use is left out)."""
+    def pick(logits, gen_idx):
+        if not sampled:
+            return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        return sample_tokens(logits, per_request_keys(root, seeds, gen_idx), temp,
+                             top_k=topk if has_tk else None,
+                             top_p=topp if has_tp else None)[0]
+    return pick
+
+
+def batch_flags(seqs) -> tuple[bool, bool, bool]:
+    """``(sampled, has_tk, has_tp)`` of a batch: any row sampled, and any
+    sampled batch's row filtering by top-k or top-p."""
+    seqs = list(seqs)
+    sampled = any(s.temperature > 0.0 for s in seqs)
+    return (sampled, sampled and any(s.top_k > 0 for s in seqs),
+            sampled and any(s.top_p < 1.0 for s in seqs))
 
 
 class RaggedInferenceEngine:
@@ -367,7 +411,7 @@ class RaggedInferenceEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.spec.init_fn(gen, dtype, self.device)
-        self.params = _cast_params(params, dtype, self.device)
+        self.params = cast_params(params, dtype, self.device)
         self.cache = self.spec.init_paged_cache_fn(
             self.cfg.num_blocks, self.cfg.block_size, dtype, self.device)
         self.allocator = BlockedAllocator(self.cfg.num_blocks)
@@ -439,6 +483,12 @@ class RaggedInferenceEngine:
         self._pending: list[dict] = []
         self.programs = ProgramCache(self.device)
         self._on_card = self.device.type == "cuda"
+        # per-request sampling: a fixed root (an explicitly seeded request
+        # reproduces on any engine); seeds put() assigns mix the engine seed
+        # with the put order
+        self._sample_root = prng.prng_key(SAMPLE_ROOT, self.device)
+        self._engine_seed = int(seed)
+        self._put_counter = 0
         # self-speculative draft state: each slot's token history (prompt +
         # generated, by position), which the scheduler program appends to
         # and drafts from. Any other path that moves a slot marks its row
@@ -455,6 +505,7 @@ class RaggedInferenceEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         # scheduling and dispatch accounting
+        self.tokens_emitted = 0
         self.tokens_scheduled = 0
         self.tokens_padded = 0
         self.dispatch_count = 0
@@ -492,11 +543,18 @@ class RaggedInferenceEngine:
     # ------------------------------------------------------------------ put
     def put(self, uid, prompt_tokens, max_new_tokens: int = 64,
             eos_token_id: int | None = None, temperature: float = 0.0,
-            deadline_s: float | None = None) -> None:
-        """Enqueue a greedy request. Admission into the running batch happens
-        inside ``step()`` as slots/budget free up. ``deadline_s`` bounds the
-        request's whole lifetime (queue wait included): past it the sequence
-        is released on the next ``step()`` with status ``timeout``."""
+            top_k: int = 0, top_p: float = 1.0, deadline_s: float | None = None,
+            seed: int | None = None) -> None:
+        """Enqueue a request. Admission into the running batch happens inside
+        ``step()`` as slots/budget free up. ``temperature`` / ``top_k`` /
+        ``top_p`` select per-request sampling (0 temperature: greedy),
+        applied inside every program. ``seed`` pins the request's sampling
+        stream: token g draws from a key of (seed, g) alone, so the same
+        seeded request gives the same tokens on any engine, in any batch and
+        dispatch mode; None assigns one from the engine seed and the put
+        order. ``deadline_s`` bounds the request's whole lifetime (queue
+        wait included): past it the sequence is released on the next
+        ``step()`` with status ``timeout``."""
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -517,16 +575,19 @@ class RaggedInferenceEngine:
             )
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError("deadline_s must be positive")
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet: it waits for "
-                "the ROADMAP.md item 'Seeded sampling with exact threefry'")
+        if seed is None:
+            eff_seed = (self._engine_seed * 1000003 + self._put_counter) & 0x7FFFFFFF
+        else:
+            eff_seed = int(seed) & 0x7FFFFFFF
+        self._put_counter += 1
         # re-putting a retired uid supersedes its old record
         self._results.pop(uid, None)
         self._queued.append(_SeqState(
             uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
             eos_token_id=eos_token_id if eos_token_id is not None else self.eos_token_id,
             deadline=(time.perf_counter() + deadline_s) if deadline_s else 0.0,
+            temperature=float(temperature), top_k=int(top_k), top_p=float(top_p),
+            seed=eff_seed,
         ))
 
     @property
@@ -734,15 +795,30 @@ class RaggedInferenceEngine:
         self.forwards += forwards
 
     def _emit_tokens(self, logits, emit) -> dict:
-        """Shared step epilogue: greedy pick at the emit indices, extend the
-        sequences, release finished ones."""
+        """Shared step epilogue: pick at the emit indices (greedy, or each
+        request's sampling with its keys from its seed and generated count),
+        extend the sequences, release finished ones. The sampling rows are
+        the pick's own inputs, not staged dispatch data (the JAX engine does
+        not count them either)."""
         out: dict = {}
         if emit:
-            idx = torch.tensor([i for i, _ in emit], device=logits.device)
-            picked = torch.argmax(logits[idx].float(), dim=-1).tolist()
-            for (_, seq), tok in zip(emit, picked):
+            seqs = [seq for _, seq in emit]
+
+            def row(vals, dtype=torch.int32):
+                return torch.tensor(vals, dtype=dtype, device=logits.device)
+
+            pick = make_pick(any(s.temperature > 0.0 for s in seqs),
+                             any(s.top_k > 0 for s in seqs), any(s.top_p < 1.0 for s in seqs),
+                             self._sample_root, row([s.seed for s in seqs]),
+                             row([s.temperature for s in seqs], torch.float32),
+                             row([s.top_k for s in seqs]),
+                             row([s.top_p for s in seqs], torch.float32))
+            picked = pick(logits[row([i for i, _ in emit])],
+                          row([len(s.generated) for s in seqs]))
+            for seq, tok in zip(seqs, picked.tolist()):
                 seq.generated.append(int(tok))
                 out[seq.uid] = int(tok)
+                self.tokens_emitted += 1
                 if seq.finished:
                     self._release(seq)
         return out
@@ -870,18 +946,19 @@ class RaggedInferenceEngine:
         return self._emit_tokens(logits, emit)
 
     # ----------------------------------------------------- decode run-ahead
-    def _decode_steps(self, k: int, toks, slots, positions, bt) -> torch.Tensor:
-        """K greedy decode steps over the paged cache, the next token fed
-        back on the device: ``[K, T]`` tokens. Pad rows (slot ``max_seqs``)
-        keep position 0, so their KV writes and reads stay in scratch block
-        0 and no gather leaves the table (the JAX engine clamps instead)."""
+    def _decode_steps(self, k: int, toks, slots, positions, bt, pick, gen0) -> torch.Tensor:
+        """K decode steps over the paged cache, the next token fed back on
+        the device: ``[K, T]`` tokens; step i picks with ``pick(logits,
+        gen0 + i)`` (``make_pick``). Pad rows (slot ``max_seqs``) keep
+        position 0, so their KV writes and reads stay in scratch block 0 and
+        no gather leaves the table (the JAX engine clamps instead)."""
         fwd = self.spec.ragged_forward_fn
         real = slots != self.cfg.max_seqs
         outs = []
-        for _ in range(k):
+        for i in range(k):
             logits, _ = fwd(self.params, toks, slots, torch.where(real, positions, 0), bt,
                             self.cache)
-            toks = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            toks = pick(logits, gen0 + i)
             outs.append(toks)
             positions = positions + 1
         return torch.stack(outs)
@@ -905,10 +982,10 @@ class RaggedInferenceEngine:
 
     def _try_decode_run_ahead(self) -> dict | None:
         """Host-staged run-ahead: when every running sequence decodes, K
-        greedy steps in one dispatch, read back at once. Returns the emit
-        dict, or None to fall back to one SplitFuse step. Only the arrays a
-        greedy chunk reads are staged (the JAX engine also stages its
-        sampling planes)."""
+        steps in one dispatch, read back at once. Returns the emit dict, or
+        None to fall back to one SplitFuse step. Stages the feed and the
+        sampling planes (seed, first generated index, temperature, top-k,
+        top-p), as the JAX engine does."""
         seqs = list(self._running.values())
         k = self._run_ahead_k(
             seqs, min((s.max_new_tokens - len(s.generated) for s in seqs), default=0))
@@ -920,13 +997,24 @@ class RaggedInferenceEngine:
         tokens = np.zeros(bucket, np.int32)
         slots = np.full(bucket, self.cfg.max_seqs, np.int32)
         positions = np.zeros(bucket, np.int32)
+        seeds, gen0, topk = (np.zeros(bucket, np.int32) for _ in range(3))
+        temp = np.zeros(bucket, np.float32)
+        topp = np.ones(bucket, np.float32)
         for j, s in enumerate(seqs):
             tokens[j] = s.token_at(s.pos)
             slots[j] = s.slot
             positions[j] = s.pos
+            # feeding token_at(pos) makes generated token pos + 1 - len(prompt)
+            seeds[j], gen0[j] = s.seed, s.pos - len(s.prompt) + 1
+            temp[j], topk[j], topp[j] = s.temperature, s.top_k, s.top_p
         max_pos = max(s.pos + k - 1 for s in seqs)
-        out = self._decode_steps(k, self._h2d(tokens), self._h2d(slots), self._h2d(positions),
-                                 self._h2d(self._table_view(max_pos)))
+        feed = [self._h2d(a) for a in (tokens, slots, positions, self._table_view(max_pos))]
+        seeds_d, gen0_d, temp_d, topk_d, topp_d = (self._h2d(a)
+                                                   for a in (seeds, gen0, temp, topk, topp))
+        pick = make_pick(any(s.temperature > 0.0 for s in seqs), bool(topk.any()),
+                         bool((topp < 1.0).any()), self._sample_root, seeds_d, temp_d,
+                         topk_d, topp_d)
+        out = self._decode_steps(k, *feed, pick, gen0_d)
         self._note_dispatch(t0, k)
         t1 = time.perf_counter()
         out = out.cpu().numpy()  # [K, bucket]
@@ -965,9 +1053,8 @@ class RaggedInferenceEngine:
         last token is 0 until the prompt-completing dispatch picks one (a
         sequence admitted past its prompt feeds its token at ``pos``)."""
         tok = seq.token_at(seq.pos) if seq.pos >= len(seq.prompt) else 0
-        # greedy only: seed 0, top-k 0, temperature 0, top-p 1
-        iv = np.asarray([tok, seq.pos, 0, len(seq.prompt), 0], np.int32)
-        fv = np.asarray([0.0, 1.0], np.float32)
+        iv = np.asarray([tok, seq.pos, seq.seed, len(seq.prompt), seq.top_k], np.int32)
+        fv = np.asarray([seq.temperature, seq.top_p], np.float32)
         self.h2d_bytes += iv.nbytes + fv.nbytes + 4  # and the row index
         ivd, fvd = self._upload(iv), self._upload(fv)
         tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
@@ -1045,19 +1132,22 @@ class RaggedInferenceEngine:
                 self.steady_clean_dispatches += 1
                 self.steady_h2d_bytes += self.h2d_bytes - h2d0
 
-    def _get_dev_step(self, t: int, nd: int, nt: int, w: int, staged: torch.Tensor):
+    def _get_dev_step(self, t: int, nd: int, nt: int, w: int, staged: torch.Tensor,
+                      flags3: tuple[bool, bool, bool]):
         """Device-resident SplitFuse step (plain or tiled) over ``staged``
         (tokens | slots | positions | flags, then the tile planes): decode
         rows (flag bit 0) take their token and position from the slot rows;
-        the greedy pick is taken on the device; the slot rows are updated in
-        place (the picked token where flag bit 1 is set, the position by a
-        max-scatter). Returns the program; its output is the picked
-        ``[t]`` tokens."""
+        the pick (``flags3``: ``batch_flags``) is taken on the device with
+        keys from the seed, position and prompt-length rows; the slot rows
+        are updated in place (the picked token where flag bit 1 is set, the
+        position by a max-scatter). Returns the program; its output is the
+        picked ``[t]`` tokens."""
         fwd = self.spec.ragged_forward_fn
         ct = self.cfg.prefill_tile if self._use_tiles else 0
         max_seqs = self.cfg.max_seqs
         ntl = max(nt, 1)
-        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
+        root = self._sample_root
         bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
 
         def step_fn():
@@ -1074,7 +1164,8 @@ class RaggedInferenceEngine:
                          staged[4 * t + 2 * ntl:4 * t + 3 * ntl], ct)
             logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
                             prefill_tiles=tiles)
-            picked = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            pick = make_pick(*flags3, root, seed_st[sl], temp_st[sl], topk_st[sl], topp_st[sl])
+            picked = pick(logits, positions - plen_st[sl] + 1)
             em = ((flags & 2) > 0) & real
             sl_t = torch.where(em, slots, max_seqs).long()
             tok_st.index_put_((sl_t,), torch.where(em, picked, tok_st[sl_t]))
@@ -1084,20 +1175,26 @@ class RaggedInferenceEngine:
 
         return step_fn
 
-    def _get_dev_chunk(self, k: int, t: int, w: int, staged: torch.Tensor):
-        """Device-resident run-ahead: K greedy decode steps whose feed token
-        and start position come from the slot rows; ``staged`` holds only
-        the slot ids. Afterwards each real slot's token row holds its last
-        pick and its position row has advanced by K. Output: ``[K, t]``."""
+    def _get_dev_chunk(self, k: int, t: int, w: int, staged: torch.Tensor,
+                       flags3: tuple[bool, bool, bool]):
+        """Device-resident run-ahead: K decode steps whose feed token, start
+        position and sampling rows come from the slot rows; ``staged`` holds
+        only the slot ids. Afterwards each real slot's token row holds its
+        last pick and its position row has advanced by K. Output:
+        ``[K, t]``."""
         max_seqs = self.cfg.max_seqs
-        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
+        root = self._sample_root
         bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
 
         def chunk_fn():
             slots = staged[:t]
             real = slots != max_seqs
             sl = torch.where(real, slots, max_seqs).long()
-            out = self._decode_steps(k, tok_st[sl], slots, torch.where(real, pos_st[sl], 0), bt)
+            pos0 = torch.where(real, pos_st[sl], 0)
+            pick = make_pick(*flags3, root, seed_st[sl], temp_st[sl], topk_st[sl], topp_st[sl])
+            out = self._decode_steps(k, tok_st[sl], slots, pos0, bt, pick,
+                                     pos0 - plen_st[sl] + 1)
             tok_st.index_put_((sl,), torch.where(real, out[-1], tok_st[sl]))
             pos_st.index_add_(0, sl, torch.where(real, k, 0).to(torch.int32))
             return out
@@ -1126,8 +1223,9 @@ class RaggedInferenceEngine:
         dirty = self._sync_bt()
         staged = self._stage(slots)
         w = self._table_width(max_pos)
-        out = self.programs.run(("chunk", k, bucket, w),
-                                self._get_dev_chunk(k, bucket, w, staged))
+        flags3 = batch_flags(seqs)
+        out = self.programs.run(("chunk", k, bucket, w, *flags3),
+                                self._get_dev_chunk(k, bucket, w, staged, flags3))
         emits = []
         for s in seqs:
             s.pos += k
@@ -1146,7 +1244,8 @@ class RaggedInferenceEngine:
         return True
 
     # ------------------------------------- device-side multi-step scheduler
-    def _get_dev_sched(self, k: int, t: int, w: int, staged: torch.Tensor) -> LoopProgram:
+    def _get_dev_sched(self, k: int, t: int, w: int, staged: torch.Tensor,
+                       flags3: tuple[bool, bool, bool]) -> LoopProgram:
         """Multi-step decode scheduler with device-side retirement (and,
         with ``spec_draft``, self-speculation): up to ``k`` decode
         iterations over the rows in ``staged`` (``[slots | eos | limit]``,
@@ -1165,6 +1264,11 @@ class RaggedInferenceEngine:
         tokens and surfaces the accepted prefix plus the model's own next
         pick (``accept_drafts``), appending what it surfaces to the history.
 
+        Each lane picks as ``flags3`` (``batch_flags``) says, with the key
+        of the position it was fed at (``keys_for_positions`` over the
+        row's sampling rows repeated per lane), so a verify lane draws what
+        plain decoding draws for that token.
+
         A ``LoopProgram`` whose carry (tokens, positions, emitted counts,
         retired flags, the output rows, the counts) lives in buffers made
         here, which every iteration updates in place. Its output packs
@@ -1176,7 +1280,8 @@ class RaggedInferenceEngine:
         fwd, params, cache = self.spec.ragged_forward_fn, self.params, self.cache
         max_seqs, d, ngram = self.cfg.max_seqs, self.cfg.spec_draft, self.cfg.spec_ngram
         lanes = 1 + d
-        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
+        root = self._sample_root
         hist = self._hist_dev
         bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
         dev = self.device
@@ -1190,6 +1295,9 @@ class RaggedInferenceEngine:
         lane_i = torch.arange(lanes, device=dev)[None, :]
         col_i = torch.arange(t, device=dev)[:, None].expand(t, lanes)
         no_draft = torch.zeros((t, 0), **i32)
+
+        def rep(x):  # a row's value on each of its verify lanes
+            return x[:, None].expand(t, lanes).reshape(t * lanes)
 
         def prologue():
             sl = slots.long()
@@ -1209,10 +1317,13 @@ class RaggedInferenceEngine:
         def body():
             live = ~done
             draft = propose_ngram_drafts(hist[slots.long()], pos, ngram, d)[0] if d else None
-            ftok, fslot, fpos, _ = speculative_lane_layout(toks, draft, pos, live, cap, slots,
-                                                           max_seqs)
+            ftok, fslot, fpos, fraw = speculative_lane_layout(toks, draft, pos, live, cap, slots,
+                                                              max_seqs)
             logits, _ = fwd(params, ftok, fslot, fpos, bt, cache)
-            picked = torch.argmax(logits.float(), dim=-1).to(torch.int32).reshape(t, lanes)
+            sl = slots.long()
+            pick = make_pick(*flags3, root, rep(seed_st[sl]), rep(temp_st[sl]),
+                             rep(topk_st[sl]), rep(topp_st[sl]))
+            picked = pick(logits, fraw - rep(plen_st[sl]) + 1).reshape(t, lanes)
             n_emit, n_acc = accept_drafts(no_draft if draft is None else draft, picked,
                                           torch.where(live, bud - emitted, 0), eos)
             sel = lane_i < n_emit[:, None]
@@ -1241,14 +1352,16 @@ class RaggedInferenceEngine:
 
         return LoopProgram(prologue, body, epilogue, pred, k)
 
-    def _sched_program(self, k: int, t: int, w: int, staged: torch.Tensor):
-        """(key, program) of the scheduler program ``(k, t, w)``, made once:
-        its carry buffers and its staging buffer persist, so the program
-        (and on the card its graph) serves every dispatch of the key."""
-        key = ("sched", k, t, w, self.cfg.spec_draft)
+    def _sched_program(self, k: int, t: int, w: int, staged: torch.Tensor,
+                       flags3: tuple[bool, bool, bool]):
+        """(key, program) of the scheduler program ``(k, t, w, flags3)``,
+        made once: its carry buffers and its staging buffer persist, so the
+        program (and on the card its graph) serves every dispatch of the
+        key."""
+        key = ("sched", k, t, w, self.cfg.spec_draft, *flags3)
         prog = self._sched_programs.get(key)
         if prog is None:
-            prog = self._sched_programs[key] = self._get_dev_sched(k, t, w, staged)
+            prog = self._sched_programs[key] = self._get_dev_sched(k, t, w, staged, flags3)
         return key, prog
 
     def _upload_hist(self, seq: _SeqState) -> None:
@@ -1328,7 +1441,8 @@ class RaggedInferenceEngine:
         dirty = self._sync_bt()
         staged = self._stage(np.concatenate([slots, eos, limit]))
         w = self._table_width(max_pos)
-        out, per_iteration = self.programs.run_loop(*self._sched_program(k, bucket, w, staged))
+        out, per_iteration = self.programs.run_loop(
+            *self._sched_program(k, bucket, w, staged, batch_flags(s for s, _ in kept)))
         emits = []
         for s, k_s in kept:
             s.pos += k_s
@@ -1445,8 +1559,9 @@ class RaggedInferenceEngine:
         w = self._table_width(max_pos)
         decode_only = n == n_dec
         # decode-only steps replay as graphs; steps with prefill run eagerly
-        picked = self.programs.run(("step", t_total, nd, nt, w),
-                                   self._get_dev_step(t_total, nd, nt, w, staged),
+        flags3 = batch_flags(seq for _, seq in emit)
+        picked = self.programs.run(("step", t_total, nd, nt, w, *flags3),
+                                   self._get_dev_step(t_total, nd, nt, w, staged, flags3),
                                    capture=decode_only)
         participants = list({seq.slot: seq for _, seq in emit}.values())
         for seq in participants:
@@ -1468,6 +1583,7 @@ class RaggedInferenceEngine:
                 break
             seq.generated.append(int(t))
             out[seq.uid] = int(t)
+            self.tokens_emitted += 1
 
     def _read(self, out) -> np.ndarray:
         """A dispatch's tokens on the host, once its readback (``_readback``)
@@ -1544,11 +1660,12 @@ class RaggedInferenceEngine:
 
     # ------------------------------------------------- fused mixed chunks
     def _fused_scan(self, k: int, nd: int, tok0, slots, positions, dec_rem, eos_ids, done0,
-                    bt):
+                    bt, pick):
         """Steps 1 .. k - 1 of a fused chunk over its decode region [0, nd):
-        row j runs its first ``dec_rem[j]`` steps, fed its previous pick,
-        until it picks its EOS. A frozen row (its steps used up) or a retired
-        one (EOS picked, or ``done0``: its feed was already its EOS) runs on
+        row j runs its first ``dec_rem[j]`` steps, fed its previous pick
+        (step i picks with ``pick(logits, i)``), until it picks its EOS. A
+        frozen row (its steps used up) or a retired one (EOS picked, or
+        ``done0``: its feed was already its EOS) runs on
         the scratch slot at position 0, writing no real state, keeps its
         last token and surfaces -1. Returns ``[k, nd]`` tokens (step 0's
         picks first, -1 for ``done0`` rows) and each row's final carry."""
@@ -1565,16 +1682,18 @@ class RaggedInferenceEngine:
             s = torch.where(active, dec_slots, max_seqs)
             p = torch.where(active, pos, 0)
             logits, _ = fwd(self.params, toks, s, p, bt, self.cache)
-            nxt = torch.where(active, torch.argmax(logits.float(), dim=-1).to(torch.int32), toks)
+            nxt = torch.where(active, pick(logits, i), toks)
             done = done | (active & (nxt == eosd) & has_eos)
             outs.append(torch.where(active, nxt, -1))
             toks = nxt
             pos = pos + 1
         return torch.stack(outs), toks
 
-    def _get_fused_chunk(self, k: int, nd: int, nt: int):
+    def _get_fused_chunk(self, k: int, nd: int, nt: int, flags3: tuple[bool, bool, bool]):
         """Host-staged fused chunk: one mixed SplitFuse step over the staged
-        rows, then ``_fused_scan`` for the decode region. Rows [0, nd) are
+        rows, then ``_fused_scan`` for the decode region, each pick as
+        ``flags3`` says with the staged sampling rows ``samp`` (seed, first
+        generated index, temperature, top-k, top-p a row). Rows [0, nd) are
         decodes (``feed_sel`` picks the slot's device token, ``_slot_toks``,
         over the host's), rows [nd, t) prefill chunks (tile-aligned when
         ``nt`` > 0); ``pf_last`` rows complete a prompt and publish their
@@ -1583,8 +1702,11 @@ class RaggedInferenceEngine:
         The program's output packs the ``[k, nd]`` decode tokens and step 0's
         ``[t]`` picks into one int32 vector."""
         fwd, max_seqs, ct = self.spec.ragged_forward_fn, self.cfg.max_seqs, self.cfg.prefill_tile
+        root = self._sample_root
 
-        def chunk_fn(tokens, slots, positions, feed_sel, dec_rem, eos_ids, pf_last, tiles, bt):
+        def chunk_fn(tokens, slots, positions, feed_sel, dec_rem, eos_ids, pf_last, tiles, bt,
+                     samp):
+            seeds, gidx, temp, topk, topp = samp
             st = self._slot_toks
             t = tokens.shape[0]
             done0 = None
@@ -1599,15 +1721,16 @@ class RaggedInferenceEngine:
                 positions = torch.cat([torch.where(done0, 0, positions[:nd]), positions[nd:]])
             logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
                             prefill_tiles=(nd, *tiles, ct) if nt else None)
-            tok0 = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            tok0 = make_pick(*flags3, root, seeds, temp, topk, topp)(logits, gidx)
             if t > nd:
                 mask = pf_last[nd:] > 0
                 sl_pf = torch.where(mask, slots[nd:], max_seqs).long()
                 st.index_put_((sl_pf,), torch.where(mask, tok0[nd:], st[sl_pf]))
             if not nd:
                 return tok0
+            pick = make_pick(*flags3, root, seeds[:nd], temp[:nd], topk[:nd], topp[:nd])
             dec_toks, last = self._fused_scan(k, nd, tok0, slots, positions, dec_rem, eos_ids,
-                                              done0, bt)
+                                              done0, bt, lambda lg, i: pick(lg, gidx[:nd] + i))
             st.index_put_((slots[:nd].long(),), last)  # done0 and pad rows: scratch
             return torch.cat([dec_toks.reshape(-1), tok0])
 
@@ -1661,9 +1784,12 @@ class RaggedInferenceEngine:
             if 0 < t and nd <= t <= budget + nd:
                 yield kk, nd, nt, w, t
 
-    def warmup(self) -> int:
+    def warmup(self, sampled: bool = False, has_tk: bool = False, has_tp: bool = False) -> int:
         """Prepare the program families before serving, the counterpart of
-        the JAX engine's ``warmup()``: the fused-chunk family
+        the JAX engine's ``warmup()``, for batches whose flags (``batch_flags``)
+        are ``(sampled, sampled and has_tk, sampled and has_tp)``: greedy by
+        default; call again with the flags of a sampling workload. The
+        fused-chunk family
         (``fused_chunk`` >= 2, each program ``_fused_family`` lists) and, on
         the device-resident path, the scheduler family (``sched_steps`` >=
         2, ``_sched_family``). On the device-resident path each program runs
@@ -1676,6 +1802,7 @@ class RaggedInferenceEngine:
         prepare. Returns the number of programs (a program two combinations
         reach counts twice, as in the JAX engine)."""
         max_seqs = self.cfg.max_seqs
+        flags3 = (sampled, sampled and has_tk, sampled and has_tp)
         n = 0
         if self.cfg.fused_chunk >= 2:
             for k, nd, nt, w, t in self._fused_family():
@@ -1689,15 +1816,15 @@ class RaggedInferenceEngine:
                 if nt_prog:
                     parts += [np.full(ntl, max_seqs), np.zeros(2 * ntl)]
                 staged = self._stage(np.concatenate(parts).astype(np.int32), account=False)
-                self.programs.warm(("fused", t, k, nd, nt_prog, w),
-                                   self._get_dev_fused(t, k, nd, nt_prog, w, staged))
+                self.programs.warm(("fused", t, k, nd, nt_prog, w, *flags3),
+                                   self._get_dev_fused(t, k, nd, nt_prog, w, staged, flags3))
         if self.cfg.sched_steps >= 2 and self.cfg.device_state:
             for k, t, w in self._sched_family():
                 n += 1
                 staged = self._stage(np.concatenate(
                     [np.full(t, max_seqs), np.full(t, -1), np.zeros(t)]).astype(np.int32),
                     account=False)
-                self.programs.warm(*self._sched_program(k, t, w, staged))
+                self.programs.warm(*self._sched_program(k, t, w, staged, flags3))
         return n
 
     def _sched_family(self):
@@ -1784,11 +1911,28 @@ class RaggedInferenceEngine:
         pf_last = np.zeros_like(tokens)
         for row, _ in pf_done:
             pf_last[row] = 1
-        packed = self._get_fused_chunk(k, nd, nt)(
-            self._h2d(tokens), self._h2d(slots), self._h2d(positions), self._h2d(feed_sel),
-            self._h2d(dec_rem), self._h2d(eos_row), self._h2d(pf_last),
-            tuple(self._h2d(x) for x in tiles) if nt else None,
-            self._h2d(self._table_view(max_pos)))
+        # sampling rows: a decode row's first pick is generated token
+        # pos + 1 - len(prompt); a prompt chunk's rows carry index 0, which
+        # only its prompt-completing row's pick uses
+        seeds, gidx, topk = (np.zeros_like(tokens) for _ in range(3))
+        temp = np.zeros(tokens.shape, np.float32)
+        topp = np.ones(tokens.shape, np.float32)
+        rows = [(j, j + 1, seq) for j, (seq, _) in enumerate(decs)]
+        rows += [(start, start + take, seq) for seq, start, take in chunks]
+        for a, b, seq in rows:
+            seeds[a:b], temp[a:b], topk[a:b], topp[a:b] = (seq.seed, seq.temperature, seq.top_k,
+                                                           seq.top_p)
+        for j, (seq, _) in enumerate(decs):
+            gidx[j] = seq.pos - len(seq.prompt) + 1
+        flags3 = (any(seq.temperature > 0.0 for _, _, seq in rows), bool(topk.any()),
+                  bool((topp < 1.0).any()))
+        # the tile planes are staged whether or not the chunk has tiles, as
+        # the JAX program takes them
+        staged = [self._h2d(a) for a in (tokens, slots, positions, feed_sel, dec_rem, eos_row,
+                                         pf_last, *tiles, self._table_view(max_pos), seeds,
+                                         gidx, temp, topk, topp)]
+        packed = self._get_fused_chunk(k, nd, nt, flags3)(
+            *staged[:7], tuple(staged[7:10]) if nt else None, staged[10], staged[11:])
         self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
         self._push_chunk(packed, k, nd, decs, chunks, pf_done)
         return True
@@ -1847,11 +1991,13 @@ class RaggedInferenceEngine:
             tpos[tile0 + ti] = seq.pos + ti * ct
             tval[tile0 + ti] = min(ct, take - ti * ct)
 
-    def _get_dev_fused(self, t: int, k: int, nd: int, nt: int, w: int, staged: torch.Tensor):
+    def _get_dev_fused(self, t: int, k: int, nd: int, nt: int, w: int, staged: torch.Tensor,
+                       flags3: tuple[bool, bool, bool]):
         """Device-resident fused chunk over ``staged`` (tokens | slots |
         positions | flags | dec_rem | eos, then the tile planes): the
         program of ``_get_fused_chunk``, with each decode row's feed token
-        and position gathered from its slot rows (flag bit 0) and the slot
+        and position, and every row's sampling rows, gathered from its slot
+        rows (flag bit 0; picks as ``flags3`` says) and the slot
         rows updated in place: prompt-completing rows (flag bit 1) set their
         token row, prefill rows max-scatter their position, and each decode
         row leaves its final carry and advances by min(dec_rem, k). A
@@ -1862,7 +2008,8 @@ class RaggedInferenceEngine:
         ct = self.cfg.prefill_tile if self._use_tiles else 0
         max_seqs = self.cfg.max_seqs
         ndl, ntl = max(nd, 1), max(nt, 1)
-        tok_st, pos_st = self._dev_state[0], self._dev_state[1]
+        tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state
+        root = self._sample_root
         bt = self._bt_dev[:, :w] if w < self._bt_dev.shape[1] else self._bt_dev
         b = 4 * t + 2 * ndl  # start of the tile planes
 
@@ -1886,7 +2033,10 @@ class RaggedInferenceEngine:
                          staged[b + 2 * ntl:b + 3 * ntl], ct)
             logits, _ = fwd(self.params, tokens, slots, positions, bt, self.cache,
                             prefill_tiles=tiles)
-            tok0 = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+            sl = slots.long()  # done0 rows read the scratch row
+            seeds, temp, topk, topp = seed_st[sl], temp_st[sl], topk_st[sl], topp_st[sl]
+            gidx = positions - plen_st[sl] + 1
+            tok0 = make_pick(*flags3, root, seeds, temp, topk, topp)(logits, gidx)
             if t > nd:
                 mask = (flags[nd:] & 2) > 0
                 sl_pf = torch.where(mask, slots[nd:], max_seqs).long()
@@ -1896,8 +2046,9 @@ class RaggedInferenceEngine:
                                        "amax")
             if not nd:
                 return tok0
+            pick = make_pick(*flags3, root, seeds[:nd], temp[:nd], topk[:nd], topp[:nd])
             dec_toks, last = self._fused_scan(k, nd, tok0, slots, positions, dec_rem, eos_ids,
-                                              done0, bt)
+                                              done0, bt, lambda lg, i: pick(lg, gidx[:nd] + i))
             rd = real[:nd]  # done0 rows are on the scratch slot already
             sl_d = torch.where(rd, slots[:nd], max_seqs).long()
             tok_st.index_put_((sl_d,), torch.where(rd, last, tok_st[sl_d]))
@@ -1928,8 +2079,9 @@ class RaggedInferenceEngine:
         staged = self._stage(np.concatenate(parts))
         w = self._table_width(max_pos)
         t = tokens.shape[0]
-        packed = self.programs.run(("fused", t, k, nd, nt, w),
-                                   self._get_dev_fused(t, k, nd, nt, w, staged))
+        flags3 = batch_flags([seq for seq, _ in decs] + [seq for seq, _, _ in chunks])
+        packed = self.programs.run(("fused", t, k, nd, nt, w, *flags3),
+                                   self._get_dev_fused(t, k, nd, nt, w, staged, flags3))
         self._push_chunk(packed, k, nd, decs, chunks, pf_done)
         self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
         self._note_steady(not chunks, dirty, (staged.shape[0], tuple(slots)), h2d0, stage0)

@@ -1,8 +1,8 @@
 """Model contract (counterpart of ``deepspeed_tpu/models/api.py:282 ModelSpec``)
 and the causal-LM loss (``:333 causal_lm_loss``).
 
-The port's ``ModelSpec`` carries what the ragged serving engine and the
-training engine need. The sharding axes and pipeline parts of the JAX
+The port's ``ModelSpec`` carries what the dense and ragged serving engines
+and the training engine need. The sharding axes and pipeline parts of the JAX
 package's spec arrive with multi-GPU training.
 """
 
@@ -29,6 +29,11 @@ class ModelSpec:
     # analytics
     num_params: int = 0
     flops_per_token: Callable[[int], float] | None = None
+    # dense inference: init_cache_fn(batch, max_len, dtype, device) -> cache;
+    # decode_fn(params, tokens, cache, start_pos) -> (logits [B, T, V], cache);
+    # the cache is updated in place
+    init_cache_fn: Callable | None = None
+    decode_fn: Callable | None = None
     # init_paged_cache_fn(num_blocks, block_size, dtype, device) -> cache;
     # ragged_forward_fn(params, tokens, slots, positions, block_tables, cache)
     #   -> (logits [T, V], cache); the cache is updated in place

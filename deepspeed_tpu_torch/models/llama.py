@@ -1,5 +1,6 @@
 """Llama-family causal LM (counterpart of ``deepspeed_tpu/models/llama.py``):
-the training forward and loss, and the ragged inference path.
+the training forward and loss, the dense-cache inference path and the
+ragged one.
 
 Parameters are a plain dict of tensors in the JAX package's stacked layout
 (``embed [V, d]``, ``layers.* [L, ...]``, ``final_norm [d]``,
@@ -25,8 +26,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_loss
-from deepspeed_tpu_torch.models.paged import (init_decode_workspace, ragged_pool_attention,
-                                              write_kv_paged)
+from deepspeed_tpu_torch.models.paged import (append_kv_and_attend, init_decode_workspace,
+                                              ragged_pool_attention, write_kv_paged)
 from deepspeed_tpu_torch.ops.attention import apply_rope, attention
 
 
@@ -164,6 +165,51 @@ def loss_fn(cfg: LlamaConfig, params: dict, batch: dict, generator=None,
 
 
 # ----------------------------------------------------------------- inference
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cpu") -> dict:
+    """Dense KV cache of the dense engine, stacked [L, B, max_len, Hkv, Dh]."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cached_layer(cfg: LlamaConfig, x, lp, k_cache, v_cache, start_pos, max_len: int):
+    """One decoder layer of a dense prefill or decode step: the new KV is
+    appended at ``start_pos`` (in place) and attention runs over the cache
+    under the absolute-position mask (``models/paged.append_kv_and_attend``)."""
+    b, t, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+
+    h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q = (h @ lp["wq"]).reshape(b, t, hq, hd)
+    kk = (h @ lp["wk"]).reshape(b, t, hkv, hd)
+    vv = (h @ lp["wv"]).reshape(b, t, hkv, hd)
+    positions = (start_pos + torch.arange(t, device=x.device))[None, :].expand(b, t)
+    q, kk = apply_rope(q, kk, positions, cfg.rope_theta)
+
+    o = append_kv_and_attend(q, kk, vv, k_cache, v_cache, start_pos, max_len)
+    x = x + o.reshape(b, t, hq * hd) @ lp["wo"]
+
+    h = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+@torch.no_grad()
+def decode_forward(cfg: LlamaConfig, params, tokens, cache, start_pos):
+    """[B, T] new tokens at positions ``start_pos ..`` over the dense cache
+    -> ([B, T, V] logits, cache): a prefill (T = prompt length, start 0) or
+    a decode step (T = 1). The cache is updated in place and returned;
+    ``start_pos`` is an int or a 0-d device tensor."""
+    max_len = cache["k"].shape[2]
+    x = params["embed"][tokens.long()].to(cache["k"].dtype)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x = _cached_layer(cfg, x, lp, cache["k"][i], cache["v"][i], start_pos, max_len)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x @ lm_head(cfg, params).to(x.dtype), cache
+
+
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
                      dtype=torch.bfloat16, device="cpu") -> dict:
     """Blocked KV pool, stacked [L, num_blocks, block_size, Hkv, Dh]; block 0
@@ -257,6 +303,8 @@ def build(cfg: LlamaConfig, remat: bool = False, remat_policy=None) -> ModelSpec
         forward_fn=partial(forward, cfg, **ckpt),
         num_params=num_params(cfg),
         flops_per_token=partial(flops_per_token, cfg),
+        init_cache_fn=partial(init_cache, cfg),
+        decode_fn=partial(decode_forward, cfg),
         init_paged_cache_fn=partial(init_paged_cache, cfg),
         ragged_forward_fn=partial(ragged_forward, cfg),
         supports_prefill_tiles=True,

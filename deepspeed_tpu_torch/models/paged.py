@@ -1,12 +1,14 @@
-"""Paged KV-cache plumbing (counterpart of ``deepspeed_tpu/models/paged.py``):
-the pool scatter, the decode / tiled-prefill attention split over the block
-pool, and the verify-lane layout of self-speculative decoding."""
+"""KV-cache plumbing (counterpart of ``deepspeed_tpu/models/paged.py``): the
+pool scatter, the decode / tiled-prefill attention split over the block
+pool, the verify-lane layout of self-speculative decoding, and the dense
+cache's append-and-attend step."""
 
 from __future__ import annotations
 
 import torch
 
-from deepspeed_tpu_torch.ops.attention import paged_attention, ragged_prefill_attention
+from deepspeed_tpu_torch.ops.attention import (eager_attention, paged_attention,
+                                               ragged_prefill_attention)
 from deepspeed_tpu_torch.ops.cuda.paged_attention import DecodeWorkspace
 
 
@@ -90,3 +92,22 @@ def speculative_lane_layout(cur_tok, draft, pos, live, cap, slots, scratch_slot:
             lane_slot.reshape(t * lanes).to(torch.int32),
             lane_pos.reshape(t * lanes).to(torch.int32),
             lane_pos_raw.reshape(t * lanes).to(torch.int32))
+
+
+def append_kv_and_attend(q, kk, vv, k_cache, v_cache, start_pos, max_len: int):
+    """Dense-cache prefill or decode step: write the new KV at positions
+    ``start_pos ..`` of every row (in place), then attend over the whole
+    cache with the absolute-position mask as an additive bias (query at
+    ``start_pos + i`` sees keys at positions <= it), through
+    ``eager_attention``: fp32 scores and the weights rounded to the cache's
+    dtype before P @ V, as the reference's ``xla_attention`` rounds them.
+    ``q``/``kk``/``vv``: [B, T, H*, D]; ``start_pos`` an int or a 0-d
+    integer tensor (a device scalar lets one captured decode step serve
+    every position). Returns the attention output [B, T, Hq, D]."""
+    t = q.shape[1]
+    idx = start_pos + torch.arange(t, device=q.device)
+    k_cache.index_copy_(1, idx, kk.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, vv.to(v_cache.dtype))
+    k_pos = torch.arange(max_len, device=q.device)[None, :]
+    bias = torch.where(k_pos <= idx[:, None], 0.0, -1e30)[None, None]
+    return eager_attention(q, k_cache, v_cache, causal=False, bias=bias)

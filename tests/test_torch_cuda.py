@@ -452,15 +452,22 @@ def _graph_engine(mode, dtype, graphs: bool):
     return eng
 
 
-def _graph_run(mode, dtype, graphs: bool, max_new=24):
+# seeded sampling mixed with greedy rows, one set of controls a request
+SAMPLED = ({}, dict(temperature=0.9, seed=7), dict(temperature=0.7, top_k=5, seed=11), {},
+           dict(temperature=1.1, top_p=0.8), dict(temperature=0.8, top_k=20, top_p=0.9, seed=3),
+           dict(top_k=3))
+
+
+def _graph_run(mode, dtype, graphs: bool, max_new=24, sampling=({},) * 7):
     """Tokens, KV pool, launch counts and engine of 7 requests (more than
-    the slots) through ``_graph_engine``."""
+    the slots) through ``_graph_engine``, each put with its ``sampling``
+    controls."""
     eng = _graph_engine(mode, dtype, graphs)
     rng = np.random.default_rng(11)
     pa.reset_counts()
-    for i, n in enumerate((3, 4, 5, 8, 9, 13, 17)):
+    for i, (n, kw) in enumerate(zip((3, 4, 5, 8, 9, 13, 17), sampling)):
         eng.put(f"r{i}", rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist(),
-                max_new_tokens=max_new)
+                max_new_tokens=max_new, **kw)
     out = eng.generate_all()
     torch.cuda.synchronize()
     launches = (pa.paged_decode_attention.launches, pa.ragged_prefill_attention.launches)
@@ -639,3 +646,83 @@ def test_paged_decode_on_a_verify_batch(cuda, dtype):
     tol = TOL[dtype]
     assert ((got.float() - want.float()).abs() <= tol * (1 + want.float().abs())).all()
     assert pa.paged_decode_attention.launches == 1
+
+
+# ----------------------------------------------- seeded sampling, dense engine
+def test_threefry_on_the_card_is_bit_identical(cuda):
+    """Keys, fold_in, the words and the uniforms on the card equal the CPU's
+    (integer work, and an exact float step)."""
+    from deepspeed_tpu_torch.utils import prng
+
+    tiny = float(torch.finfo(torch.float32).tiny)
+    for seed in (0, 7, 0x5A3D1E, 2**31 - 1):
+        kc, kg = prng.prng_key(seed), prng.prng_key(seed, cuda)
+        rows_c = prng.fold_in(kc, torch.arange(8))
+        rows_g = prng.fold_in(kg, torch.arange(8, device=cuda))
+        assert torch.equal(rows_g.cpu(), rows_c)
+        assert torch.equal(prng.random_bits(rows_g, (97,)).cpu(), prng.random_bits(rows_c, (97,)))
+        for shape in ((1,), (97,), (3, 11), (4, 128256)):
+            assert torch.equal(prng.random_bits(kg, shape).cpu(), prng.random_bits(kc, shape))
+            for lo in (0.0, tiny):
+                assert torch.equal(prng.uniform(kg, shape, lo).cpu(), prng.uniform(kc, shape, lo))
+
+
+@pytest.mark.parametrize("mode", ["plain", "run_ahead", "fused", "sched", "fused_spec"])
+def test_sampled_graphs_replay_bit_identical_to_eager(cuda, mode):
+    """Seeded requests mixed with greedy ones: the captured programs (each
+    key carrying its batch's sampling flags) replay what the same programs
+    compute eagerly, and the host-staged engine on the card draws the same
+    streams."""
+    from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    out_g, _, _, eng = _graph_run(mode, torch.float32, graphs=True, sampling=SAMPLED)
+    out_e, _, _, _ = _graph_run(mode, torch.float32, graphs=False, sampling=SAMPLED)
+    assert eng.programs.replays > 0 and out_g == out_e
+    assert any(key[-3] for key in eng.programs._graphs)  # a sampled program was captured
+    host = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
+                                 RaggedConfig(**ENGINE_RCFG, device_state=False),
+                                 dtype=torch.float32, seed=0)
+    rng = np.random.default_rng(11)
+    for i, (n, kw) in enumerate(zip((3, 4, 5, 8, 9, 13, 17), SAMPLED)):
+        host.put(f"r{i}", rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist(),
+                 max_new_tokens=24, **kw)
+    assert host.generate_all() == out_g
+
+
+def test_sampled_warmup_then_serving_only_replays(cuda):
+    """After ``warmup(sampled=True, has_tk=True, has_tp=True)`` a run of
+    sampled, filtered requests captures nothing."""
+    eng = _graph_engine("fused_spec", torch.float32, graphs=True)
+    assert eng.warmup(sampled=True, has_tk=True, has_tp=True) > 0
+    captures, eager = eng.programs.captures, eng.programs.eager_runs
+    rng = np.random.default_rng(11)
+    for i, n in enumerate((3, 4, 5, 8, 9, 13, 17)):
+        eng.put(f"r{i}", rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist(),
+                max_new_tokens=24, temperature=0.8, top_k=9, top_p=0.9, seed=i)
+    eng.generate_all()
+    torch.cuda.synchronize()
+    assert (eng.programs.captures, eng.programs.eager_runs) == (captures, eager)
+    assert eng.programs.replays == eng.dispatch_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dense_engine_graphs_match_eager(cuda, dtype):
+    """The dense engine's captured prefill and decode step replay what they
+    compute eagerly, greedy and sampled with every filter and the
+    repetition penalty; a repeated key captures nothing."""
+    from deepspeed_tpu_torch.inference.engine import InferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    eng = InferenceEngine(llama.build(llama.LlamaConfig.tiny()), dtype=dtype, seed=0)
+    prompt = np.random.default_rng(2).integers(0, 256, (3, 9)).astype(np.int32)
+    for kw in ({}, dict(temperature=0.8, seed=4, top_k=9, top_p=0.9, repetition_penalty=1.2)):
+        graph = eng.generate(prompt, max_new_tokens=12, **kw)
+        captures = eng.programs.captures
+        again = eng.generate(prompt, max_new_tokens=12, **kw)
+        assert eng.programs.captures == captures and np.array_equal(graph, again)
+        eng.programs.on_card = False
+        eager = eng.generate(prompt, max_new_tokens=12, **kw)
+        eng.programs.on_card = True
+        assert np.array_equal(graph, eager)
+    assert eng.programs.captures == 4 and eng.programs.replays > 0

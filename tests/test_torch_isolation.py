@@ -20,6 +20,10 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.ops.cuda._build",
     "deepspeed_tpu_torch.ops.cuda.paged_attention",
     "deepspeed_tpu_torch.inference.ragged",
+    "deepspeed_tpu_torch.inference.engine",
+    "deepspeed_tpu_torch.inference.sampling",
+    "deepspeed_tpu_torch.inference.cuda_graphs",
+    "deepspeed_tpu_torch.utils.prng",
     "deepspeed_tpu_torch.config.base",
     "deepspeed_tpu_torch.config.config",
     "deepspeed_tpu_torch.ops.optimizers",
@@ -36,6 +40,7 @@ for name in sys.argv[1:]:
     importlib.import_module(name)
 import deepspeed_tpu_torch
 deepspeed_tpu_torch.RaggedInferenceEngine, deepspeed_tpu_torch.llama
+deepspeed_tpu_torch.InferenceEngine, deepspeed_tpu_torch.init_inference
 deepspeed_tpu_torch.initialize, deepspeed_tpu_torch.Engine, deepspeed_tpu_torch.load_config
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))

@@ -106,8 +106,15 @@ def test_put_validation(np_params):
         eng.put("a", [1] * 60, max_new_tokens=5)
     with pytest.raises(ValueError, match="deadline_s"):
         eng.put("a", [1, 2], max_new_tokens=4, deadline_s=0)
-    with pytest.raises(NotImplementedError, match="Seeded sampling"):
-        eng.put("a", [1, 2], max_new_tokens=4, temperature=0.7)
+    # sampling is accepted (the reference validates none of its controls):
+    # an explicit seed is masked to 31 bits, an assigned one mixes the engine
+    # seed with the put order
+    sampled = _port_engine(np_params)
+    sampled.put("s", [1, 2], max_new_tokens=4, temperature=0.7, top_k=5, top_p=0.9,
+                seed=-3)
+    sampled.put("t", [1, 2], max_new_tokens=4, temperature=0.7)
+    assert [(q.temperature, q.top_k, q.top_p, q.seed) for q in sampled._queued] == [
+        (0.7, 5, 0.9, -3 & 0x7FFFFFFF), (0.7, 0, 1.0, 1)]
     small = _port_engine(np_params, num_blocks=4)
     with pytest.raises(ValueError, match="KV blocks"):
         small.put("a", [1] * 12, max_new_tokens=4)

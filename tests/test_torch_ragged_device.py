@@ -174,9 +174,10 @@ def test_deadline_timeout_mid_flight(np_params):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_slot_reuse_rewrites_device_rows(np_params, mode):
     """Six requests through three slots: each admission writes its slot's
-    seven rows anew (last token 0, position 0, seed 0, prompt length,
-    temperature 0, top-k 0, top-p 1) over what the previous occupant left,
-    so each request's tokens equal the host-staged engine's."""
+    seven rows anew (last token 0, position 0, the request's seed, prompt
+    length, temperature 0, top-k 0, top-p 1) over what the previous
+    occupant left, so each request's tokens equal the host-staged
+    engine's. The engine assigns seed i to the i-th put (engine seed 0)."""
     reqs = {f"{wave}-{uid}": p for wave in (0, 1)
             for uid, p in _requests(wave, (5, 11, 23)).items()}
     dev = _engine(np_params, **MODES[mode])
@@ -188,15 +189,16 @@ def test_slot_reuse_rewrites_device_rows(np_params, mode):
         before = int(dev._dev_state[1][seq.slot])
         write(seq)
         writes.append((before, [float(st[seq.slot]) for st in dev._dev_state],
-                       len(seq.prompt)))
+                       len(seq.prompt), seq.seed))
 
     dev._write_slot_row = spy
     got = _run(dev, reqs, max_new=5)
     assert got == _run(host, reqs, max_new=5)
     assert len(writes) == len(reqs)
-    for _, row, plen in writes:
-        assert row == [0.0, 0.0, 0.0, float(plen), 0.0, 0.0, 1.0]
-    assert sum(before > 0 for before, _, _ in writes) == 3  # the reused slots
+    assert sorted(seed for *_, seed in writes) == list(range(len(reqs)))
+    for _, row, plen, seed in writes:
+        assert row == [0.0, 0.0, float(seed), float(plen), 0.0, 0.0, 1.0]
+    assert sum(before > 0 for before, *_ in writes) == 3  # the reused slots
     assert _leak_free(dev)
 
 

@@ -176,7 +176,8 @@ def test_warmup_prepares_the_family_and_leaves_state(tile):
               eng.dispatch_count, eng.tokens_scheduled, eng.tokens_padded)
     assert eng.warmup() == 15
     nt_prog = (lambda nt: nt) if tile else (lambda nt: 0)
-    family = {("fused", t, k, nd, nt_prog(nt), w) for k, nd, nt, w, t in eng._fused_family()}
+    family = {("fused", t, k, nd, nt_prog(nt), w, False, False, False)
+              for k, nd, nt, w, t in eng._fused_family()}
     assert family <= eng.programs._seen
     state, k, v, bt, bt_host, *counts = before
     for a, b in zip(state, eng._dev_state):
@@ -241,6 +242,7 @@ def test_bench_serving_schedule_matches_jax():
     assert got["port"] == got["jax"]
     assert all(len(v) == chip_smoke.MAX_NEW for v in got["port"].values())
     assert sorted(key[1:] for key in peng.programs._seen) == [
-        (32, 16, 32, 0, 18), (928, 16, 32, 7, 18), (1024, 1, 0, 8, 18)]
+        (32, 16, 32, 0, 18, False, False, False), (928, 16, 32, 7, 18, False, False, False),
+        (1024, 1, 0, 8, 18, False, False, False)]
     assert peng.warmup() == chip_smoke.FUSED_WARMUP_PROGRAMS
     assert _leak_free(peng)

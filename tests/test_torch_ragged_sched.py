@@ -289,7 +289,8 @@ def test_warmup_prepares_the_scheduler_family_and_leaves_state():
               eng.h2d_bytes, eng.stage_bytes, eng.dispatch_count, eng.tokens_scheduled)
     assert eng.warmup() == 4
     assert {key for key in eng.programs._seen if key[0] == "sched"} == {
-        ("sched", k, 4, RCFG["max_blocks_per_seq"], 4) for k in (1, 2, 4, 8)}
+        ("sched", k, 4, RCFG["max_blocks_per_seq"], 4, False, False, False)
+        for k in (1, 2, 4, 8)}
     state, hist, k, v, bt, bt_host, *counts = before
     for a, b in zip(state, eng._dev_state):
         assert torch.equal(a[:-1], b[:-1])
