@@ -79,6 +79,23 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    x 96 tokens, the seeded parity matrix of all four dispatch modes
    (gated in fp32 at 2 layers, counted in bf16 at full depth), speculation
    on a repeated prompt and the dispatch economy of a staggered run;
+5i. prefix_cache: the bench's serving configuration with the prefix cache
+   on, after ``warmup()``, on bench.py's shared-prefix workload (a 96-token
+   prefix: every tail starts mid-tile): a cold run, a run of fresh tails
+   (32 hits of 3 blocks) and a repeat (32 hits of all but the last block),
+   with hits, reused and scheduled prompt tokens, 0 captures and no leak
+   gated; then hit vs cold tokens in the four dispatch modes, greedy and
+   seeded, gated in fp32 at 2 layers;
+5j. kv_tier: bench.py's --kv-tier workload (a 37-block pool, host and
+   disk tiers under runs/, 24 arrivals of 12 prompts twice, prefetch
+   kicked at arrival): demotions, spills, host promotions and prefetch
+   hits gated in bf16 at full depth, both occurrences identical gated in
+   fp32 at 2 layers; restore ms a block by tier and the tiers' bytes;
+5k. handoff: the 32-request workload prefilled on one engine
+   (``put(handoff=True)``), each record through ``to_bytes`` /
+   ``from_bytes`` into a fused decode engine: tokens gated equal to a
+   single engine's in fp32 at 2 layers, bf16 streams differing from
+   engine_fused's counted; bytes a record and export / import ms;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -773,6 +790,13 @@ def replay(torch, llama, cfg, params, saved, max_seqs):
                 max_abs_err=(a - b).abs().max().item(), top1_agreement=top1)
 
 
+def launch_counts(pa):
+    """The paged kernels' launch counts, and the plain versions' calls."""
+    return ({"paged_decode": pa.paged_decode_attention.launches,
+             "paged_prefill": pa.ragged_prefill_attention.launches},
+            pa.paged_decode_attention_ref.calls + pa.ragged_prefill_attention_ref.calls)
+
+
 def kernel_class(name: str) -> str:
     for kernel in ("paged_decode", "paged_prefill", "flash_fwd", "flash_dkdv", "flash_dq"):
         if kernel in name:
@@ -788,12 +812,13 @@ def kernel_class(name: str) -> str:
 
 
 def profile_phase(torch, work, phase="profile"):
-    """``work()`` under torch.profiler: device time by kernel class and the
-    device's busy share of the wall time (the profiler's own host overhead
-    lengthens that wall time)."""
+    """``work()`` under torch.profiler, CUDA activity alone (no host
+    events: recording and averaging those took most of the profiled runs'
+    time): device time by kernel class and the device's busy share of the
+    wall time (the profiler's own host overhead lengthens that wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
@@ -809,7 +834,10 @@ def profile_phase(torch, work, phase="profile"):
     emit(phase, wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3), device_ms_by_class=by_class,
          top_kernels=[{"name": e.key[:90], "count": e.count,
-                       "device_ms": e.self_device_time_total / 1e3} for e in top])
+                       "device_ms": e.self_device_time_total / 1e3} for e in top],
+         activities="cuda")
+    if busy <= 0:
+        raise AssertionError(f"{phase}: the profiler recorded no device time")
 
 
 def engine_phase(torch, np, llama, ragged, pa):
@@ -849,10 +877,7 @@ def engine_phase(torch, np, llama, ragged, pa):
         wall = time.perf_counter() - t0
     finally:
         power = sampler.stop()
-    launches = {"paged_decode": pa.paged_decode_attention.launches,
-                "paged_prefill": pa.ragged_prefill_attention.launches}
-    plain_calls = (pa.paged_decode_attention_ref.calls
-                   + pa.ragged_prefill_attention_ref.calls)
+    launches, plain_calls = launch_counts(pa)
     gen = sum(len(v) for v in out.values())
     emit("engine_run", path="host-staged", requests=len(out), new_tokens_each=MAX_NEW,
          generated_tokens=gen,
@@ -997,10 +1022,7 @@ def measured_run(torch, pa, eng, prompts):
         wall = time.perf_counter() - t0
     finally:
         power = sampler.stop()
-    launches = {"paged_decode": pa.paged_decode_attention.launches,
-                "paged_prefill": pa.ragged_prefill_attention.launches}
-    plain_calls = (pa.paged_decode_attention_ref.calls
-                   + pa.ragged_prefill_attention_ref.calls)
+    launches, plain_calls = launch_counts(pa)
     d = {k: v - before[k] for k, v in engine_counters(eng).items()}
     return out, wall, launches, plain_calls, d, power
 
@@ -1268,7 +1290,7 @@ def engine_fused_phase(torch, np, llama, ragged, pa, device_run: dict):
                              f"JAX engine's {FUSED_SCHEDULE}")
     profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_fused")
     return launches, in_replays, eng, dict(generated_tokens_per_s=gen / wall,
-                                           forwards=d["forwards"])
+                                           forwards=d["forwards"], tokens=out)
 
 
 def fused_program_check(torch, np, eng) -> dict:
@@ -2040,9 +2062,7 @@ def decode_steady_phase(torch, np, llama, ragged, engine_mod, pa, weights, param
         t0 = time.perf_counter()
         out = run_tagged(eng, "run")
         dt = time.perf_counter() - t0
-        launches = {"paged_decode": pa.paged_decode_attention.launches,
-                    "paged_prefill": pa.ragged_prefill_attention.launches}
-        plain = pa.paged_decode_attention_ref.calls + pa.ragged_prefill_attention_ref.calls
+        launches, plain = launch_counts(pa)
         disp = max(eng.dispatch_count - d0, 1)
         toks = sum(len(v) for v in out.values())
         bad = (any(len(v) != s["max_new"] or not all(0 <= t < cfg.vocab_size for t in v)
@@ -2157,6 +2177,388 @@ def decode_steady_phase(torch, np, llama, ragged, engine_mod, pa, weights, param
     if dense_recaptures:
         raise AssertionError("decode_steady: the dense engine's repeated shape captured again")
     return sched_launches
+
+
+# ------------------------------------------- prefix cache, KV tiers, handoff
+# bench.py:1255-1260's shared-prefix workload at P = 96 tokens (3 blocks of
+# 32), so every tail after a hit starts in the middle of a 128-token tile
+PREFIX_TOKENS = 96
+# the fp32 gate at 2 layers: the four dispatch modes, 16 new tokens a
+# request, odd requests seeded as bench.py:1236 seeds them
+PREFIX_MODES = {"host": dict(device_state=False),
+                "device": dict(device_state=True, decode_run_ahead=RUN_AHEAD),
+                "fused": FUSED, "spec": SPEC}
+PREFIX_FP32_NEW = 16
+SEEDED = dict(temperature=0.9, top_k=20)
+
+
+def shared_prefix_prompts(np, vocab, rng, prefix):
+    """``prefix`` + max(1, L - P) fresh tokens for L in PROMPT_LENS, N_REQ
+    prompts shuffled by ``rng`` (bench.py:1255-1260)."""
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, vocab, (max(1, PROMPT_LENS[i % len(PROMPT_LENS)] - len(prefix)),), dtype=np.int32)])
+        for i in range(N_REQ)]
+    rng.shuffle(prompts)
+    return prompts
+
+
+def tagged_run(torch, eng, prompts, tag, max_new=MAX_NEW, seeded=False):
+    """Put ``prompts`` as uids (tag, i), odd ones seeded (1000 + i) when
+    ``seeded``; tokens by i."""
+    for i, p in enumerate(prompts):
+        kw = dict(SEEDED, seed=1000 + i) if seeded and i % 2 else {}
+        eng.put((tag, i), p, max_new_tokens=max_new, **kw)
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    return {uid[1]: v for uid, v in out.items() if uid[0] == tag}
+
+
+def add_counts(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def divergence(got: dict, want: dict) -> list:
+    """For each stream of ``got`` that differs from ``want``'s, the index of
+    its first differing token, sorted."""
+    return sorted(next(i for i, (a, b) in enumerate(zip(got[k] + [None], want[k] + [None]))
+                       if a != b) for k in want if got[k] != want[k])
+
+
+def pool_clean(eng) -> bool:
+    """No reference held and every usable block free or retained."""
+    alloc = eng.allocator
+    return (all(r == 0 for r in alloc._refs) and not eng._reserved
+            and len(alloc._free) + alloc.retained_blocks == alloc.num_blocks - 1)
+
+
+def prefix_cache_phase(torch, np, llama, ragged, pa, weights, params32) -> dict:
+    """The reference bench's serving configuration (``ENGINE`` + ``FUSED``)
+    with ``enable_prefix_cache`` after ``warmup()``, on the shared-prefix
+    workload: run A cold, run B the same prefix with fresh tails (every
+    request splices the prefix's 3 blocks), run C B's prompts again (every
+    request splices all but its last block). Each run's counts are zeroed
+    just before it and read just after. Then the fp32 gate at 2 layers: in
+    each dispatch mode, hit tokens (greedy and seeded) equal a cold
+    engine's. Returns the launches of runs A + B + C."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = llama.build(cfg)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, (PREFIX_TOKENS,), dtype=np.int32)
+    prompts_a = shared_prefix_prompts(np, cfg.vocab_size, rng, prefix)
+    prompts_b = shared_prefix_prompts(np, cfg.vocab_size, rng, prefix)
+    bs = ENGINE["block_size"]
+    eng = ragged.RaggedInferenceEngine(
+        spec, ragged.RaggedConfig(**ENGINE, **FUSED, enable_prefix_cache=True),
+        dtype=torch.bfloat16, params=weights)
+    t0 = time.perf_counter()
+    programs = eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    want = {"A": (0, 0), "B": (N_REQ, N_REQ * PREFIX_TOKENS),
+            "C": (N_REQ, sum((len(p) - 1) // bs * bs for p in prompts_b))}
+    runs, tokens, total, failed = {}, {}, {}, []
+    for name, prompts in (("A", prompts_a), ("B", prompts_b), ("C", prompts_b)):
+        p = eng.programs
+        before = (eng.prefix_hits, eng.prefix_misses, eng.prefix_tokens_reused,
+                  eng.tokens_scheduled, p.captures, p.eager_runs, p.replays,
+                  eng.allocator.evictions)
+        pa.reset_counts()
+        t0 = time.perf_counter()
+        tokens[name] = tagged_run(torch, eng, prompts, name)
+        wall = time.perf_counter() - t0
+        launches, plain = launch_counts(pa)
+        hits, misses, reused, sched, captures, eager, replays, evictions = (
+            a - b for a, b in zip((eng.prefix_hits, eng.prefix_misses, eng.prefix_tokens_reused,
+                                   eng.tokens_scheduled, p.captures, p.eager_runs, p.replays,
+                                   eng.allocator.evictions), before))
+        prompt_total = sum(len(x) for x in prompts)
+        gen = sum(len(v) for v in tokens[name].values())
+        # every request feeds MAX_NEW decode tokens (the last one's pick is
+        # dropped at reconcile): the rest of the scheduled tokens are prompt
+        runs[name] = dict(wall_s=wall, useful_tokens_per_s=(prompt_total + gen) / wall,
+                          prompt_tokens=prompt_total, generated_tokens=gen, prefix_hits=hits,
+                          prefix_misses=misses, prefix_tokens_reused=reused,
+                          scheduled_prompt_tokens=sched - N_REQ * MAX_NEW,
+                          graph_captures=captures, eager_dispatches=eager,
+                          graph_replays=replays, evictions=evictions,
+                          kernel_launches=launches, plain_version_calls=plain)
+        add_counts(total, launches)
+        if (hits, reused) != want[name]:
+            failed.append(f"run {name}: {hits} hits reusing {reused} tokens, want {want[name]}")
+        if sched - N_REQ * MAX_NEW != prompt_total - reused:
+            failed.append(f"run {name}: {sched - N_REQ * MAX_NEW} prompt tokens scheduled, "
+                          f"want {prompt_total} - {reused}")
+        if captures or eager or evictions:
+            failed.append(f"run {name}: {captures} captures, {eager} eager programs and "
+                          f"{evictions} evictions after warmup()")
+        if min(launches.values()) <= 0 or plain:
+            failed.append(f"run {name}: launches {launches}, plain calls {plain}")
+        if len(tokens[name]) != N_REQ or any(len(v) != MAX_NEW or not all(
+                0 <= t < cfg.vocab_size for t in v) for v in tokens[name].values()):
+            failed.append(f"run {name}: a stream of the wrong length or vocabulary")
+    clean = pool_clean(eng)
+    retained = eng.allocator.retained_blocks
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers: hit tokens against a cold engine's, in every mode
+    cfg2, p32 = params32
+    spec2 = llama.build(cfg2)
+    fp32 = {}
+    for mode, over in PREFIX_MODES.items():
+        rcfg = dict(ENGINE, **over)
+        cold = ragged.RaggedInferenceEngine(spec2, ragged.RaggedConfig(**rcfg),
+                                            dtype=torch.float32, params=p32)
+        want_b = tagged_run(torch, cold, prompts_b, "B", PREFIX_FP32_NEW, seeded=True)
+        warm = ragged.RaggedInferenceEngine(
+            spec2, ragged.RaggedConfig(**rcfg, enable_prefix_cache=True),
+            dtype=torch.float32, params=p32)
+        tagged_run(torch, warm, prompts_a, "A", PREFIX_FP32_NEW, seeded=True)
+        got_b = tagged_run(torch, warm, prompts_b, "B", PREFIX_FP32_NEW, seeded=True)
+        fp32[mode] = dict(streams_equal_to_cold=sum(got_b[i] == want_b[i] for i in want_b),
+                          prefix_hits=warm.prefix_hits)
+        del cold, warm
+        gc.collect()
+    torch.cuda.empty_cache()
+    emit("prefix_cache", model="llama3_8b", dtype="bfloat16", source="bench.py:1170-1263",
+         shared_prefix_tokens=PREFIX_TOKENS, ragged_config=dict(ENGINE, **FUSED),
+         prompt_lens=sorted({len(x) for x in prompts_a}), requests=N_REQ,
+         new_tokens_each=MAX_NEW, warmup_programs=programs, warmup_s=warmup_s, runs=runs,
+         want_hits_and_reused=want, retained_blocks_after=retained, pool_clean=clean,
+         bf16_streams_of_c_differing_from_b=sum(tokens["C"][i] != tokens["B"][i]
+                                                for i in tokens["B"]),
+         bf16_first_differing_token_of_c_vs_b=divergence(tokens["C"], tokens["B"]),
+         fp32_2_layers_hit_vs_cold=fp32, fp32_new_tokens_each=PREFIX_FP32_NEW,
+         kernel_launches=total, nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not clean:
+        failed.append("blocks leaked: free + retained != num_blocks - 1")
+    for mode, r in fp32.items():
+        if r["streams_equal_to_cold"] != N_REQ or r["prefix_hits"] != N_REQ:
+            failed.append(f"fp32 {mode}: {r}")
+    if failed:
+        raise AssertionError(f"prefix_cache: {failed}")
+    return total
+
+
+# bench.py:1203-1251's --kv-tier workload: a pool of two requests' worth of
+# blocks, 3 groups of 64-token prefixes on 512-token prompts, every unique
+# prompt twice (odd ones seeded), shuffled by default_rng(0); a request
+# arrives every KV_TIER_ARRIVAL_STEPS engine steps (its prefetch kicked as
+# EngineLoop.prefetch_prefix would)
+KV_TIER_MBS = -(-(max(PROMPT_LENS) + MAX_NEW) // BS)
+KV_TIER = dict(num_blocks=2 * KV_TIER_MBS + 1, enable_prefix_cache=True, kv_tier=True,
+               kv_tier_host_blocks=4 * KV_TIER_MBS, kv_tier_disk_blocks=8 * KV_TIER_MBS)
+KV_TIER_GROUPS, KV_TIER_PREFIX, KV_TIER_REQ = 3, 2 * BS, 24
+KV_TIER_ARRIVAL_STEPS = 2
+
+
+def kv_tier_workload(np, vocab):
+    rng = np.random.default_rng(0)
+    n_uniq = KV_TIER_REQ // 2
+    prefixes = [rng.integers(0, vocab, (KV_TIER_PREFIX,), dtype=np.int32)
+                for _ in range(KV_TIER_GROUPS)]
+    reqs = []
+    for u in range(n_uniq):
+        p = np.concatenate([prefixes[u % KV_TIER_GROUPS], rng.integers(
+            0, vocab, (max(PROMPT_LENS) - KV_TIER_PREFIX,), dtype=np.int32)])
+        reqs.append((u, p, {} if u % 2 == 0 else dict(SEEDED, seed=1000 + u)))
+    reqs = [reqs[i % n_uniq] for i in range(KV_TIER_REQ)]
+    rng.shuffle(reqs)
+    return reqs
+
+
+def kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs, directory):
+    """One tiered run of ``reqs`` arriving every KV_TIER_ARRIVAL_STEPS steps:
+    (pairs of identical occurrences, tier stats, restore ms a block by
+    tier, launches, plain calls, wall seconds, whether the pool is clean)."""
+    eng = ragged.RaggedInferenceEngine(
+        spec, ragged.RaggedConfig(**{**ENGINE, **FUSED, **KV_TIER, "kv_tier_dir": directory}),
+        dtype=dtype, params=params)
+    eng.warmup()
+    store = eng._kvtier
+    restores = {1: [0, 0.0], 2: [0, 0.0]}  # blocks, seconds of restores reaching tier t
+    note = store.note_restored
+
+    def timed(tiers, seconds):
+        r = restores[2 if 2 in tiers else 1]
+        r[0] += len(tiers)
+        r[1] += seconds
+        note(tiers, seconds)
+
+    store.note_restored = timed
+    pending, uniq, step = list(reqs), {}, 0
+    pa.reset_counts()
+    t0 = time.perf_counter()
+    while pending or eng.has_work:
+        if pending and step % KV_TIER_ARRIVAL_STEPS == 0:
+            u, p, extra = pending.pop(0)
+            eng.tier_prefetch_async(p)
+            uniq[len(uniq)] = u
+            eng.put(len(uniq) - 1, p, max_new_tokens=MAX_NEW, **extra)
+        if eng.has_work:
+            eng.step()
+        step += 1
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = launch_counts(pa)
+    by_u: dict = {}
+    for uid, toks in out.items():
+        by_u.setdefault(uniq[uid], []).append(toks)
+    pairs = sum(len(v) == 2 and v[0] == v[1] for v in by_u.values())
+    first = divergence({u: v[1] for u, v in by_u.items()}, {u: v[0] for u, v in by_u.items()})
+    stats = eng.kv_tier_stats()
+    clean = pool_clean(eng) and all(len(v) == MAX_NEW for v in out.values())
+    store.close()
+    del eng
+    gc.collect()
+    ms = {("host" if t == 1 else "disk"): (s * 1e3 / n if n else None)
+          for t, (n, s) in restores.items()}
+    return pairs, first, stats, ms, launches, plain, wall, clean
+
+
+def kv_tier_phase(torch, np, llama, ragged, pa, weights, params32) -> dict:
+    """bench.py's --kv-tier workload at Llama-3-8B in bf16 (counted: pairs
+    of identical occurrences; gated: demotions, spills, host promotions and
+    prefetch hits, no torn file swept) and in fp32 at 2 layers (gated:
+    every pair identical; a disk restore passes the cost model there). The
+    disk records go under runs/, removed at the end. Returns the bf16
+    run's launches."""
+    import shutil
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    reqs = kv_tier_workload(np, cfg.vocab_size)
+    root = os.path.join("runs", f"kvtier-chip-smoke-{os.getpid()}")
+    cfg2, p32 = params32
+    try:
+        res = {}
+        for name, spec, dtype, params in (("bf16", llama.build(cfg), torch.bfloat16, weights),
+                                          ("fp32_2_layers", llama.build(cfg2), torch.float32,
+                                           p32)):
+            res[name] = kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs,
+                                    os.path.join(root, name))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    bytes_per_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.hd * 2
+    out = {}
+    for name, (pairs, first, stats, ms, launches, plain, wall, clean) in res.items():
+        out[name] = dict(pairs_identical=pairs, pairs=KV_TIER_REQ // 2,
+                         first_differing_token_of_second_occurrence=first, tier_stats=stats,
+                         restore_ms_per_block=ms, kernel_launches=launches,
+                         plain_version_calls=plain, wall_s=wall, pool_clean=clean)
+    emit("kv_tier", model="llama3_8b", source="bench.py:1203-1251",
+         ragged_config=dict(ENGINE, **FUSED, **KV_TIER), requests=KV_TIER_REQ,
+         prefix_groups=KV_TIER_GROUPS, prefix_tokens=KV_TIER_PREFIX,
+         prompt_tokens=max(PROMPT_LENS), new_tokens_each=MAX_NEW,
+         arrival_every_steps=KV_TIER_ARRIVAL_STEPS, kv_bytes_per_token=bytes_per_token,
+         kv_block_bytes=bytes_per_token * BS,
+         restore_us_per_token_modelled={
+             "host": bytes_per_token * 8 / 100e9 * 1e6, "disk": bytes_per_token * 8 / 8e9 * 1e6,
+             "prefill": 1e6 / 50000.0},
+         runs=out, nvidia_smi=nvidia_smi("name", "power.limit"))
+    failed = []
+    bf, f32 = out["bf16"], out["fp32_2_layers"]
+    st = bf["tier_stats"]
+    for key in ("demotions", "spills", "promotions_host", "prefetch_hits"):
+        if st[key] <= 0:
+            failed.append(f"bf16: {key} = {st[key]}")
+    if f32["pairs_identical"] != f32["pairs"]:
+        failed.append(f"fp32: {f32['pairs_identical']} of {f32['pairs']} pairs identical")
+    for name, r in out.items():
+        if r["tier_stats"]["sweep_removed"]:
+            failed.append(f"{name}: the start-up sweep removed a torn file")
+        if not r["pool_clean"] or min(r["kernel_launches"].values()) <= 0 or \
+                r["plain_version_calls"]:
+            failed.append(f"{name}: pool clean {r['pool_clean']}, launches "
+                          f"{r['kernel_launches']}, plain calls {r['plain_version_calls']}")
+    if failed:
+        raise AssertionError(f"kv_tier: {failed}")
+    return bf["kernel_launches"]
+
+
+def handoff_split(torch, ragged, pa, spec, dtype, params, prompts):
+    """The workload through a prefill engine (``put(handoff=True)``) and a
+    fused decode engine that shares its weights: each record exported,
+    through ``to_bytes`` / ``from_bytes``, imported. Returns (tokens,
+    stats, launches, plain calls)."""
+    rcfg = ragged.RaggedConfig(**ENGINE, **FUSED)
+    pre = ragged.RaggedInferenceEngine(spec, rcfg, dtype=dtype, params=params)
+    dec = ragged.RaggedInferenceEngine(spec, rcfg, dtype=dtype, params=params)
+    pa.reset_counts()
+    for i, p in enumerate(prompts):
+        pre.put(i, p, max_new_tokens=MAX_NEW, handoff=True)
+    pre.generate_all()
+    torch.cuda.synchronize()
+    export_s = import_s = 0.0
+    nbytes, wire = {}, {}
+    for i, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        buf = pre.export_handoff(i).to_bytes()
+        t1 = time.perf_counter()
+        rec = ragged.KVHandoff.from_bytes(buf)
+        if not dec.import_handoff(rec):
+            raise AssertionError(f"handoff: the decode engine refused request {i}")
+        torch.cuda.synchronize()
+        export_s += t1 - t0
+        import_s += time.perf_counter() - t1
+        nbytes[len(p)], wire[len(p)] = rec.nbytes, len(buf)
+    out = dec.generate_all()
+    torch.cuda.synchronize()
+    launches, plain = launch_counts(pa)
+    stats = dict(export_ms_per_request=export_s * 1e3 / len(prompts),
+                 import_ms_per_request=import_s * 1e3 / len(prompts),
+                 record_bytes_by_prompt_len=nbytes, serialized_bytes_by_prompt_len=wire,
+                 kv_blocks_exported=pre.kv_blocks_exported,
+                 kv_blocks_imported=dec.kv_blocks_imported,
+                 pools_clean=pool_clean(pre) and pool_clean(dec))
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, stats, launches, plain
+
+
+def handoff_phase(torch, np, llama, ragged, pa, weights, params32, fused_tokens) -> dict:
+    """The 32-request workload split across a prefill and a decode engine at
+    Llama-3-8B in bf16 (streams differing from engine_fused's counted) and
+    in fp32 at 2 layers (gated: equal to a single engine's). Returns the
+    bf16 split's launches (prefill and decode engines)."""
+    cfg = llama.LlamaConfig.llama3_8b()
+    prompts = requests(np, cfg.vocab_size)
+    out, stats, launches, plain = handoff_split(torch, ragged, pa, llama.build(cfg),
+                                                torch.bfloat16, weights, prompts)
+    cfg2, p32 = params32
+    spec2 = llama.build(cfg2)
+    single = ragged.RaggedInferenceEngine(spec2, ragged.RaggedConfig(**ENGINE, **FUSED),
+                                          dtype=torch.float32, params=p32)
+    want32 = run(single, prompts, MAX_NEW)
+    del single
+    out32, stats32, _, plain32 = handoff_split(torch, ragged, pa, spec2, torch.float32, p32,
+                                               prompts)
+    same32 = sum(out32[i] == want32[i] for i in want32)
+    emit("handoff", model="llama3_8b", dtype="bfloat16", requests=N_REQ,
+         new_tokens_each=MAX_NEW, ragged_config=dict(ENGINE, **FUSED), **stats,
+         bf16_streams_differing_from_engine_fused=sum(out[i] != fused_tokens[i]
+                                                      for i in fused_tokens),
+         bf16_first_differing_token=divergence(out, fused_tokens),
+         fp32_2_layers_streams_equal_to_single_engine=same32, fp32_2_layers=stats32,
+         kernel_launches=launches, plain_version_calls=plain,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    failed = []
+    if same32 != N_REQ:
+        failed.append(f"fp32: {same32} of {N_REQ} streams equal to a single engine's")
+    for name, s in (("bf16", stats), ("fp32", stats32)):
+        if s["kv_blocks_exported"] != s["kv_blocks_imported"] or not s["pools_clean"]:
+            failed.append(f"{name}: {s}")
+    if len(out) != N_REQ or any(len(v) != MAX_NEW for v in out.values()):
+        failed.append("bf16: a stream of the wrong length")
+    if min(launches.values()) <= 0 or plain or plain32:
+        failed.append(f"launches {launches}, plain calls {plain} / {plain32}")
+    if failed:
+        raise AssertionError(f"handoff: {failed}")
+    return launches
 
 # ------------------------------------------------------------------- train
 def train_cfg(llama, layers: int):
@@ -2432,6 +2834,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     steady_launches = decode_steady_phase(torch, np, llama, ragged, dense_mod, pa, weights,
                                           params32)
+    # 5i. the prefix cache, 5j. KV tiers and 5k. KV handoff on the same weights
+    prefix_launches = prefix_cache_phase(torch, np, llama, ragged, pa, weights, params32)
+    tier_launches = kv_tier_phase(torch, np, llama, ragged, pa, weights, params32)
+    handoff_launches = handoff_phase(torch, np, llama, ragged, pa, weights, params32,
+                                     fused_run["tokens"])
     del weights, params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -2464,6 +2871,9 @@ def main() -> int:
                             launches_engine_sched=sched_launches.get(name),
                             launches_engine_spec=spec_launches.get(name),
                             launches_decode_steady_sched=steady_launches.get(name),
+                            launches_prefix_cache=prefix_launches.get(name),
+                            launches_kv_tier=tier_launches.get(name),
+                            launches_handoff=handoff_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

@@ -54,14 +54,29 @@ the same tokens in every dispatch mode and on the JAX engine. Whether a
 batch samples, and whether it filters by top-k or top-p, are part of each
 program's key, as they are static in the JAX engine's.
 
-The prefix cache, KV tiers, low-bit pools, handoff, telemetry and fault
-injection are not ported yet (``ROADMAP.md``).
+With ``enable_prefix_cache`` a retired request publishes its full prompt
+blocks into the allocator's hash-chained index, and admission splices the
+longest cached full-block prefix into a new request's block table, so only
+the tail prefills (it may start in the middle of a prefill tile). With
+``kv_tier`` an evicted published block is demoted to a host arena and a disk
+spill directory (``inference/kvtier.py``) and promoted back at admission when
+the cost model favours it. ``put(handoff=True)`` runs a request's prompt and
+first token only and parks its blocks for ``export_handoff``: the
+``KVHandoff`` record (bytes through ``to_bytes``/``from_bytes``) resumes on
+another engine with ``import_handoff``; ``export_prefix``/``import_prefix``
+move published prefix blocks. Block payloads are CPU torch tensors; every
+device write of a transfer goes into the pool in place, which the captured
+graphs read. Every path reproduces the cold tokens, greedy and seeded.
+
+Low-bit pools, headroom admission, telemetry and fault injection are not
+ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import pickle
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Any
 
 import numpy as np
@@ -69,6 +84,8 @@ import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
 from deepspeed_tpu_torch.inference.cuda_graphs import LoopProgram, ProgramCache
+from deepspeed_tpu_torch.inference.kvtier import (HANDOFF_MAGIC, KVTierStore, frame_bytes,
+                                                  unframe_bytes)
 from deepspeed_tpu_torch.inference.sampling import (accept_drafts, per_request_keys,
                                                     propose_ngram_drafts, sample_tokens)
 from deepspeed_tpu_torch.models.api import ModelSpec
@@ -287,6 +304,37 @@ class RaggedConfig:
     spec_draft: int = 0
     # suffix length the prompt-lookup draft matches
     spec_ngram: int = 3
+    # block-level prefix caching: retired sequences publish their full prompt
+    # blocks into a hash-chained index; admission splices the longest cached
+    # full-block prefix (refcounts bumped) and prefills only the tail. Cached
+    # blocks with no referents stay evictable (LRU), funded by free memory.
+    # Off: scheduling is that of an uncached engine.
+    enable_prefix_cache: bool = False
+    # headroom-driven admission (measured free bytes): not ported (refused)
+    headroom_admission: bool = False
+    # ---- hierarchical KV tiering (inference/kvtier.py) ----
+    # HBM pool -> bounded host arena -> disk spill: an LRU eviction demotes
+    # the published block's payload instead of dropping it, and admission
+    # promotes demoted chain links back (allocate -> scatter -> publish) when
+    # restore_beats_prefill favours it. Requires enable_prefix_cache.
+    kv_tier: bool = False
+    # tier-1 budget in KV blocks (> 0 when kv_tier is on)
+    kv_tier_host_blocks: int = 64
+    # tier-2 budget in records; 0 disables the disk tier
+    kv_tier_disk_blocks: int = 0
+    # spill directory; swept for torn temp files at engine start-up
+    kv_tier_dir: str = "runs/kvtier"
+    # modelled host<->device and disk bandwidths, in gigabits per second,
+    # for the promotion cost model; <= 0 (unknown) never restores
+    kv_tier_host_gbps: float = 100.0
+    kv_tier_disk_gbps: float = 8.0
+    # modelled prefill throughput the restore competes against
+    kv_tier_prefill_tokens_per_s: float = 50000.0
+    # tier_prefetch_async stages disk records to the host arena off-thread
+    kv_tier_prefetch: bool = True
+    # low-bit serving ("off" | "int8" | "fp8" | "woq8" | "woq4" | "qcol"
+    # joined by "+"): only "off" is ported
+    quant: str = "off"
 
     @property
     def max_seq_len(self) -> int:
@@ -323,6 +371,18 @@ class _SeqState:
     top_k: int = 0
     top_p: float = 1.0
     seed: int = 0
+    # prompt tokens whose KV came from the prefix cache (block-aligned: the
+    # first cached_prefix // block_size blocks are shared and never written;
+    # pos starts past them)
+    cached_prefix: int = 0
+    # a prefill-stage request of disaggregated serving: it runs the prompt
+    # and its first token, then parks its blocks for export_handoff;
+    # handoff_budget carries the request's full max_new_tokens to the record
+    handoff: bool = False
+    handoff_budget: int = 0
+    # the cached-prefix tokens a router credited at placement: admission
+    # counts a splice that comes up short (prefix_stale_probes)
+    expected_cached: int = 0
 
     def token_at(self, p: int) -> int:
         if p < len(self.prompt):
@@ -376,6 +436,131 @@ def batch_flags(seqs) -> tuple[bool, bool, bool]:
             sampled and any(s.top_p < 1.0 for s in seqs))
 
 
+# ------------------------------------------------------ KV block payloads
+def payload_leaves(payload) -> list:
+    """The leaves of a block payload (a dict mirroring the paged cache's
+    ``k`` and ``v``, each ``[L, n_blocks, block_size, Hkv, D]``), in the
+    JAX tree order (keys sorted)."""
+    return [] if payload is None else [payload[k] for k in sorted(payload)]
+
+
+def map_payload(fn, payload):
+    """``fn`` applied to every leaf of a block payload (None stays None)."""
+    return None if payload is None else {k: fn(v) for k, v in payload.items()}
+
+
+def _leaf_to_torch(a) -> torch.Tensor:
+    """A payload leaf as a CPU torch tensor (a JAX engine's records hold
+    numpy arrays)."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _leaf_to_wire(a):
+    """A payload leaf as ``to_bytes`` pickles it: a numpy array, which the
+    JAX package reads as its own; numpy has no bfloat16, so a bf16 leaf
+    stays a CPU torch tensor (read back bit for bit by this package only)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return a.clone()
+        return a.numpy().copy()
+    return a
+
+
+@dataclass
+class KVHandoff:
+    """Prefill -> decode handoff record of disaggregated serving (the JAX
+    engine's ``KVHandoff``, the same fields): made by ``export_handoff`` on
+    a prefill engine after the prompt and first token ran, consumed by
+    ``import_handoff`` on a decode engine, which allocates fresh blocks,
+    scatters the payload and resumes decode token for token (sampling keys
+    depend only on (seed, generated index)). ``block_payload`` covers
+    ceil(pos / block_size) blocks as CPU tensors; ``row_iv`` / ``row_fv``
+    are the slot row (token, position, seed, prompt length, top-k;
+    temperature, top-p) as int32 / float32 numpy arrays."""
+
+    uid: Any
+    prompt: list[int]
+    generated: list[int]        # tokens emitted by the prefill stage (>= 1)
+    pos: int                    # KV scheduled for positions [0, pos)
+    max_new_tokens: int         # the decode side's budget (the full request)
+    eos_token_id: int | None
+    temperature: float
+    top_k: int
+    top_p: float
+    seed: int                   # effective per-request sampling seed
+    deadline_remaining_s: float  # seconds of deadline left at export (0: none)
+    block_payload: Any = None
+    row_iv: np.ndarray = None
+    row_fv: np.ndarray = None
+    # trace context of the originating request (carried, not read here)
+    traceparent: str | None = None
+    # KV codec of block_payload; this package runs "off" only
+    codec: str = "off"
+    # billing identity (carried, not read here)
+    tenant: str = "default"
+    sla_class: str = "interactive"
+
+    @property
+    def n_blocks(self) -> int:
+        leaves = payload_leaves(self.block_payload)
+        return int(leaves[0].shape[1]) if leaves else 0
+
+    @property
+    def nbytes(self) -> int:
+        n = sum(int(a.nbytes) for a in payload_leaves(self.block_payload))
+        for a in (self.row_iv, self.row_fv):
+            if a is not None:
+                n += a.nbytes
+        return n
+
+    def to_bytes(self) -> bytes:
+        """The record with ``HANDOFF_MAGIC`` and length+sha256 framing
+        (``kvtier.frame_bytes``): a pickled dict of the fields, payload
+        leaves as numpy arrays (bf16: CPU tensors), so an fp32 record loads
+        in the JAX package too."""
+        body = {f.name: getattr(self, f.name) for f in fields(self)}
+        body["block_payload"] = map_payload(_leaf_to_wire, self.block_payload)
+        return HANDOFF_MAGIC + frame_bytes(pickle.dumps(body, protocol=4))
+
+    @classmethod
+    def from_bytes(cls, buf: bytes) -> "KVHandoff":
+        """Inverse of ``to_bytes`` (and of the JAX engine's): raises
+        ValueError for anything short of a byte-exact record (bad magic,
+        torn frame, digest mismatch, trailing bytes)."""
+        buf = bytes(buf)
+        if not buf.startswith(HANDOFF_MAGIC):
+            raise ValueError("not a KVHandoff record (bad magic)")
+        body, end = unframe_bytes(buf, len(HANDOFF_MAGIC))
+        if end != len(buf):
+            raise ValueError("trailing bytes after KVHandoff frame")
+        rec = cls(**pickle.loads(body))
+        rec.block_payload = map_payload(_leaf_to_torch, rec.block_payload)
+        return rec
+
+
+@dataclass
+class PrefixPayload:
+    """Published prefix-cache blocks in transferable form (the JAX engine's
+    ``PrefixPayload``): the block-aligned prompt slice they cover and their
+    KV payloads. ``import_prefix`` re-derives the hash chain from the
+    tokens, so a block can never splice under the wrong key."""
+
+    tokens: list[int]
+    block_payload: Any = None
+    traceparent: str | None = None
+    codec: str = "off"
+
+    @property
+    def n_blocks(self) -> int:
+        leaves = payload_leaves(self.block_payload)
+        return int(leaves[0].shape[1]) if leaves else 0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(a.nbytes) for a in payload_leaves(self.block_payload))
+
+
 class RaggedInferenceEngine:
     """Continuous-batching engine over a ``ModelSpec`` with ragged hooks.
 
@@ -402,6 +587,20 @@ class RaggedInferenceEngine:
                 raise ValueError("spec_draft requires sched_steps >= 2")
             if self.cfg.spec_ngram < 1:
                 raise ValueError("spec_ngram must be >= 1")
+        if self.cfg.quant != "off":
+            raise NotImplementedError(
+                f"quant={self.cfg.quant!r}: low-bit KV pools and weights are not ported "
+                "yet: ROADMAP.md queue 1 item 6 (low-bit serving)")
+        if self.cfg.headroom_admission:
+            raise NotImplementedError(
+                "headroom_admission is not ported yet: ROADMAP.md queue 1 item 14 "
+                "(telemetry and the control plane: memledger)")
+        if self.cfg.kv_tier:
+            if not self.cfg.enable_prefix_cache:
+                raise ValueError("kv_tier requires enable_prefix_cache "
+                                 "(the tiers hold demoted prefix blocks)")
+            if self.cfg.kv_tier_host_blocks <= 0:
+                raise ValueError("kv_tier needs kv_tier_host_blocks > 0")
         self.spec = model
         if self.spec.ragged_forward_fn is None or self.spec.init_paged_cache_fn is None:
             raise ValueError(f"model {self.spec.name} has no ragged/paged support")
@@ -415,6 +614,17 @@ class RaggedInferenceEngine:
         self.cache = self.spec.init_paged_cache_fn(
             self.cfg.num_blocks, self.cfg.block_size, dtype, self.device)
         self.allocator = BlockedAllocator(self.cfg.num_blocks)
+        # hierarchical KV tiering: the tier store and the allocator's demote
+        # hook; None with kv_tier off (an eviction then drops the payload)
+        self._kvtier = None
+        if self.cfg.kv_tier:
+            self._kvtier = KVTierStore(
+                host_blocks=self.cfg.kv_tier_host_blocks,
+                disk_blocks=self.cfg.kv_tier_disk_blocks, directory=self.cfg.kv_tier_dir,
+                host_gbps=self.cfg.kv_tier_host_gbps, disk_gbps=self.cfg.kv_tier_disk_gbps,
+                prefill_tokens_per_s=self.cfg.kv_tier_prefill_tokens_per_s,
+                bytes_per_token=self.kv_bytes_per_token(), codec="off")
+            self.allocator.demote_hook = self._demote_block
         # row max_seqs is the all-zeros padding row -> scratch block 0
         self.block_tables = np.zeros(
             (self.cfg.max_seqs + 1, self.cfg.max_blocks_per_seq), np.int32
@@ -534,6 +744,16 @@ class RaggedInferenceEngine:
         # scheduler dispatches and the iterations they ran
         self.sched_dispatches = 0
         self.sched_iterations = 0
+        # prefix-cache accounting
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_tokens_reused = 0
+        self.prefix_stale_probes = 0  # admissions whose splice came up short
+        # disaggregated serving: finished prefill-stage sequences whose
+        # blocks are parked for export_handoff, and the blocks moved
+        self._handoffs: dict[Any, _SeqState] = {}
+        self.kv_blocks_exported = 0
+        self.kv_blocks_imported = 0
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
@@ -544,7 +764,8 @@ class RaggedInferenceEngine:
     def put(self, uid, prompt_tokens, max_new_tokens: int = 64,
             eos_token_id: int | None = None, temperature: float = 0.0,
             top_k: int = 0, top_p: float = 1.0, deadline_s: float | None = None,
-            seed: int | None = None) -> None:
+            seed: int | None = None, handoff: bool = False,
+            expected_cached_tokens: int = 0) -> None:
         """Enqueue a request. Admission into the running batch happens inside
         ``step()`` as slots/budget free up. ``temperature`` / ``top_k`` /
         ``top_p`` select per-request sampling (0 temperature: greedy),
@@ -554,13 +775,20 @@ class RaggedInferenceEngine:
         dispatch mode; None assigns one from the engine seed and the put
         order. ``deadline_s`` bounds the request's whole lifetime (queue
         wait included): past it the sequence is released on the next
-        ``step()`` with status ``timeout``."""
+        ``step()`` with status ``timeout``. ``handoff``: a prefill-stage
+        request, which runs its prompt and ONE token and then parks its
+        blocks for ``export_handoff`` (the record carries the full
+        ``max_new_tokens``). ``expected_cached_tokens``: the prefix a router
+        credited at placement; a shorter splice at admission is counted in
+        ``prefix_stale_probes``."""
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        total = len(prompt) + max_new_tokens
+        # the decode engine that imports a handoff record owns the full budget
+        eff_new = 1 if handoff else max_new_tokens
+        total = len(prompt) + eff_new
         if total > self.cfg.max_seq_len:
             raise ValueError(
                 f"request length {total} exceeds engine max_seq_len "
@@ -583,11 +811,12 @@ class RaggedInferenceEngine:
         # re-putting a retired uid supersedes its old record
         self._results.pop(uid, None)
         self._queued.append(_SeqState(
-            uid=uid, prompt=prompt, max_new_tokens=max_new_tokens,
+            uid=uid, prompt=prompt, max_new_tokens=eff_new,
             eos_token_id=eos_token_id if eos_token_id is not None else self.eos_token_id,
             deadline=(time.perf_counter() + deadline_s) if deadline_s else 0.0,
             temperature=float(temperature), top_k=int(top_k), top_p=float(top_p),
-            seed=eff_seed,
+            seed=eff_seed, handoff=bool(handoff), handoff_budget=int(max_new_tokens),
+            expected_cached=max(0, int(expected_cached_tokens)),
         ))
 
     @property
@@ -654,6 +883,356 @@ class RaggedInferenceEngine:
         total = len(seq.prompt) + seq.max_new_tokens
         return -(-total // self.cfg.block_size)
 
+    # ---------------------------------------------------------- prefix cache
+    def _chain_keys(self, prompt: list[int]) -> list:
+        """The prompt's full-block hash-chain keys, root first, capped one
+        token short of the prompt: the first generated token needs the last
+        prompt position's logits, which only a forward gives, so at least
+        the prompt's final block always prefills."""
+        bs = self.cfg.block_size
+        keys, key = [], None
+        for i in range((len(prompt) - 1) // bs):
+            key = (key, tuple(prompt[i * bs:(i + 1) * bs]))
+            keys.append(key)
+        return keys
+
+    def _match_prefix(self, prompt: list[int]) -> list[int]:
+        """The blocks of the longest cached full-block prefix of ``prompt``
+        (the chain walked block by block until its first miss)."""
+        blocks = []
+        for key in self._chain_keys(prompt):
+            b = self.allocator.lookup(key)
+            if b is None:
+                break
+            blocks.append(b)
+        return blocks
+
+    def cached_prefix_len(self, prompt_tokens) -> int:
+        """Tokens of ``prompt_tokens`` the prefix cache could serve now
+        (block-aligned, always < the prompt's length). Read-only, so a
+        router may probe it from another thread; advisory, since admission
+        matches again."""
+        if not self.cfg.enable_prefix_cache:
+            return 0
+        prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        if not prompt:
+            return 0
+        return len(self._match_prefix(prompt)) * self.cfg.block_size
+
+    def _publish_prompt_blocks(self, seq: _SeqState) -> None:
+        """Publish a retiring sequence's full prompt blocks into the prefix
+        index (``free`` then moves them to the evictable LRU when their last
+        referent drops). Only blocks whose KV was scheduled count: a request
+        cancelled mid-prefill publishes its computed region."""
+        bs = self.cfg.block_size
+        key = None
+        for i in range(min(seq.pos, len(seq.prompt)) // bs):
+            key = (key, tuple(seq.prompt[i * bs:(i + 1) * bs]))
+            self.allocator.publish(seq.blocks[i], key)
+
+    def set_prefix_listener(self, listener) -> None:
+        """Attach a publish/evict listener (a cluster prefix index: an object
+        with ``on_publish(key)``, ``on_evict(key)`` and optionally
+        ``on_demote(key)``) to the allocator."""
+        self.allocator.listener = listener
+
+    def kv_bytes_per_token(self) -> int:
+        """Bytes of paged-cache state one token position occupies (``k``
+        and ``v`` over every layer): the bytes side of the tier cost model."""
+        bs = self.cfg.block_size
+        total = 0
+        for name in ("k", "v"):
+            a = self.cache[name]
+            total += a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size() // bs
+        return total
+
+    # ------------------------------------- KV transfer (disaggregated serving)
+    @staticmethod
+    def _block_index(blocks: list[int]) -> np.ndarray:
+        """``blocks`` padded with the scratch block to a power of two (the
+        JAX engine's bucketing, kept so the H2D bytes agree)."""
+        r = 1
+        while r < len(blocks):
+            r *= 2
+        idx = np.zeros(r, np.int32)
+        idx[:len(blocks)] = blocks
+        return idx
+
+    def _gather_blocks(self, blocks: list[int]) -> dict:
+        """The KV of ``blocks`` as CPU tensors ``{"k", "v"}``, each ``[L,
+        n, block_size, Hkv, D]``. Only ``k`` and ``v`` move (a CUDA cache
+        also holds the decode workspace). The read is in stream order behind
+        every dispatch enqueued before it, and waits for it."""
+        idx = torch.from_numpy(self._block_index(blocks)).to(self.device).long()
+        n = len(blocks)
+        return {name: self.cache[name].index_select(1, idx)[:, :n].contiguous().cpu()
+                for name in ("k", "v")}
+
+    def _scatter_blocks(self, blocks: list[int], payload) -> None:
+        """Write transferred payloads into ``blocks`` IN PLACE (pad rows into
+        the scratch block): the captured graphs hold the pool's pointers, so
+        the pool tensors are never replaced. H2D bytes: the index and the
+        padded payload, as the JAX engine counts them."""
+        idx = self._block_index(blocks)
+        n, r = len(blocks), len(idx)
+        payload = map_payload(_leaf_to_torch, payload)
+        if r != n:
+            payload = map_payload(lambda a: torch.cat(
+                [a, a.new_zeros((a.shape[0], r - n) + tuple(a.shape[2:]))], dim=1), payload)
+        self.h2d_bytes += idx.nbytes + sum(int(a.nbytes) for a in payload_leaves(payload))
+        idx_d = torch.from_numpy(idx).to(self.device).long()
+        for name in ("k", "v"):
+            pool = self.cache[name]
+            pool.index_copy_(1, idx_d, payload[name].to(self.device, pool.dtype))
+
+    def export_handoff(self, uid) -> KVHandoff | None:
+        """Turn a finished prefill-stage request (``put(handoff=True)``)
+        into a ``KVHandoff`` record, then retire its blocks here (publishing
+        its prompt blocks first, as a normal retirement does). None if
+        ``uid`` has no parked handoff (cancelled, timed out or exported)."""
+        seq = self._handoffs.pop(uid, None)
+        if seq is None:
+            return None
+        # the resume point: feeding token_at(pos) at pos picks generated
+        # token pos - len(prompt) + 1, so decode resumes one position behind
+        # the newest token (KV scheduled past it is rewritten on resume)
+        pos = len(seq.prompt) + len(seq.generated) - 1
+        n_ctx = -(-pos // self.cfg.block_size)
+        payload = self._gather_blocks(seq.blocks[:n_ctx])
+        self.kv_blocks_exported += n_ctx
+        tok = seq.token_at(pos) if pos >= len(seq.prompt) else 0
+        rec = KVHandoff(
+            uid=seq.uid, prompt=list(seq.prompt), generated=list(seq.generated), pos=pos,
+            max_new_tokens=seq.handoff_budget or seq.max_new_tokens,
+            eos_token_id=seq.eos_token_id, temperature=seq.temperature, top_k=seq.top_k,
+            top_p=seq.top_p, seed=seq.seed,
+            deadline_remaining_s=(max(0.0, seq.deadline - time.perf_counter())
+                                  if seq.deadline else 0.0),
+            block_payload=payload,
+            row_iv=np.asarray([tok, pos, seq.seed, len(seq.prompt), seq.top_k], np.int32),
+            row_fv=np.asarray([seq.temperature, seq.top_p], np.float32))
+        self._retire_parked(seq)
+        return rec
+
+    def discard_handoff(self, uid) -> bool:
+        """Release a parked handoff without exporting it."""
+        seq = self._handoffs.pop(uid, None)
+        if seq is None:
+            return False
+        self._retire_parked(seq)
+        return True
+
+    def _retire_parked(self, seq: _SeqState) -> None:
+        if self.cfg.enable_prefix_cache:
+            self._publish_prompt_blocks(seq)
+        self.allocator.free(seq.blocks)
+        seq.blocks = []
+
+    def import_handoff(self, h: KVHandoff) -> bool:
+        """Adopt a prefill engine's handoff: allocate fresh blocks, scatter
+        the payload, write the slot row from the record's snapshot and
+        resume decode token for token. False when no slot or not enough
+        unreserved blocks are free now; ValueError for a record this engine
+        could never serve."""
+        cfg = self.cfg
+        bs = cfg.block_size
+        if h.codec != "off":
+            raise ValueError(f"handoff KV codec {h.codec!r} does not match this engine's "
+                             "quant config 'off'")
+        prompt = [int(t) for t in h.prompt]
+        total = len(prompt) + int(h.max_new_tokens)
+        if total > cfg.max_seq_len:
+            raise ValueError(f"handoff length {total} exceeds engine max_seq_len "
+                             f"{cfg.max_seq_len}")
+        worst = -(-total // bs)
+        cap = min(cfg.num_blocks - 1, cfg.max_blocks_per_seq)
+        if worst > cap:
+            raise ValueError(f"handoff needs {worst} KV blocks but at most {cap} are "
+                             "available per sequence")
+        pos = int(h.pos)
+        n_ctx = -(-pos // bs)
+        if h.n_blocks != n_ctx:
+            raise ValueError(f"handoff payload covers {h.n_blocks} blocks but pos={pos} "
+                             f"needs {n_ctx}")
+        if not self._free_slots or worst > self.allocator.free_blocks - self._reserved:
+            return False
+        seq = _SeqState(
+            uid=h.uid, prompt=prompt, max_new_tokens=int(h.max_new_tokens),
+            eos_token_id=h.eos_token_id, temperature=float(h.temperature), top_k=int(h.top_k),
+            top_p=float(h.top_p), seed=int(h.seed), generated=list(h.generated), pos=pos,
+            deadline=(time.perf_counter() + h.deadline_remaining_s
+                      if h.deadline_remaining_s else 0.0))
+        self._results.pop(h.uid, None)  # supersede a stale retired record
+        blocks = self.allocator.allocate(n_ctx)
+        self._scatter_blocks(blocks, h.block_payload)
+        self.kv_blocks_imported += n_ctx
+        seq.blocks = blocks
+        if seq.finished:
+            # the prefill stage already ended the request: retire it here,
+            # seeding this engine's prefix cache with the prompt blocks
+            self._retire_parked(seq)
+            self._results[seq.uid] = seq
+            return True
+        slot = self._free_slots.pop()
+        seq.slot = slot
+        seq.reserved_remaining = worst - n_ctx
+        self._reserved += seq.reserved_remaining
+        self.block_tables[slot, :] = 0
+        self.block_tables[slot, :n_ctx] = blocks
+        self._bt_dirty.add(slot)
+        self._slot_feed[slot] = False
+        self._running[slot] = seq
+        if cfg.device_state:
+            self._write_slot_row(seq, h.row_iv, h.row_fv)
+        # the draft history is rebuilt from prompt + generated
+        self._hist_stale[slot] = True
+        return True
+
+    def export_prefix(self, prompt_tokens) -> PrefixPayload | None:
+        """The longest cached full-block prefix of a prompt as a payload
+        (demoted links promoted first); None when nothing is cached."""
+        if not self.cfg.enable_prefix_cache:
+            return None
+        prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        if not prompt:
+            return None
+        if self._kvtier is not None:
+            self._tier_promote(prompt)
+        hit = self._match_prefix(prompt)
+        if not hit:
+            return None
+        self.allocator.acquire(hit)  # pinned against eviction during the gather
+        try:
+            payload = self._gather_blocks(hit)
+        finally:
+            self.allocator.free(hit)
+        self.kv_blocks_exported += len(hit)
+        return PrefixPayload(tokens=prompt[:len(hit) * self.cfg.block_size],
+                             block_payload=payload)
+
+    def import_prefix(self, payload: PrefixPayload | None) -> int:
+        """Install transferred prefix blocks into this engine's prefix cache
+        (allocate -> scatter -> publish under the re-derived chain -> the
+        evictable LRU). Returns the tokens now cached from the root. Links
+        already published are kept; blocks past the unreserved budget are
+        dropped, never forced; a codec mismatch is a miss."""
+        if payload is None or not self.cfg.enable_prefix_cache:
+            return 0
+        if payload.codec != "off":
+            return 0
+        bs = self.cfg.block_size
+        tokens = [int(t) for t in payload.tokens]
+        n = min(payload.n_blocks, len(tokens) // bs)
+        alloc = self.allocator
+        keys, missing, key = [], [], None
+        for i in range(n):
+            key = (key, tuple(tokens[i * bs:(i + 1) * bs]))
+            keys.append(key)
+            if alloc.lookup(key) is None:
+                missing.append(i)
+        missing = missing[:max(0, alloc.free_blocks - self._reserved)]
+        if missing:
+            blocks = alloc.allocate(len(missing))
+            sel = torch.tensor(missing)
+            self._scatter_blocks(blocks, map_payload(lambda a: _leaf_to_torch(a)[:, sel],
+                                                     payload.block_payload))
+            for b, i in zip(blocks, missing):
+                alloc.publish(b, keys[i])
+            alloc.free(blocks)  # refcount 0 + published -> evictable LRU
+            self.kv_blocks_imported += len(blocks)
+        m = 0
+        for k in keys:
+            if alloc.lookup(k) is None:
+                break
+            m += 1
+        return m * bs
+
+    # ------------------------------------ hierarchical KV tiering (kvtier.py)
+    def _demote_block(self, block: int, key) -> bool:
+        """The allocator's demote hook: read one evicted block's payload to
+        the host and park it in the tier store, while the payload is intact
+        (inside ``allocate``, before the id is reused). The read follows the
+        block's last write in stream order. Never inside a graph capture:
+        there the block is dropped (a plain eviction)."""
+        store = self._kvtier
+        if store is None or (self._on_card and torch.cuda.is_current_stream_capturing()):
+            return False
+        try:
+            payload = self._gather_blocks([block])
+        except Exception:  # noqa: BLE001 - a failed gather is a plain eviction
+            return False
+        return store.demote(key, payload)
+
+    def _tier_promote(self, prompt: list[int]) -> int:
+        """Restore demoted chain links of ``prompt`` from the tiers into the
+        HBM prefix index, in chain order, while the cost model says the
+        restore beats re-prefilling (``import_prefix``'s allocate -> scatter
+        -> publish -> LRU, so the splice is that of blocks that never left).
+        Draws only on unreserved blocks. Returns the blocks promoted."""
+        store = self._kvtier
+        if store is None:
+            return 0
+        bs = self.cfg.block_size
+        alloc = self.allocator
+        t0 = time.perf_counter()
+        cand = []  # (key, payload, tier) of the contiguous restorable run
+        for key in self._chain_keys(prompt):
+            if alloc.lookup(key) is not None:
+                continue
+            tier = store.tier_of(key)
+            if tier == 0:
+                break  # held nowhere: the chain ends here
+            if not store.should_restore(bs, tier):
+                store.restore_declined += 1
+                break
+            got = store.fetch(key)
+            if got is None:
+                break  # lost to an overflow between tier_of and fetch
+            cand.append((key, got[0], got[1]))
+        cand = cand[:max(0, alloc.free_blocks - self._reserved)]
+        if not cand:
+            return 0
+        blocks = alloc.allocate(len(cand))
+        payload = {name: torch.cat([_leaf_to_torch(p[name]) for _, p, _ in cand], dim=1)
+                   for name in ("k", "v")}
+        self._scatter_blocks(blocks, payload)
+        for b, (key, _, _) in zip(blocks, cand):
+            alloc.publish(b, key)
+        alloc.free(blocks)  # refcount 0 + published -> evictable LRU (MRU)
+        store.note_restored([t for _, _, t in cand], time.perf_counter() - t0)
+        return len(cand)
+
+    def _tier_admit(self, seq: _SeqState) -> None:
+        """Admission's tier pass, before ``_match_prefix``: resolve the
+        request's prefetch (hit, or abandoned when admission outran it) and
+        promote synchronously."""
+        keys = self._chain_keys(seq.prompt)
+        if not keys:
+            return
+        self._kvtier.note_admission(keys[-1])
+        self._tier_promote(seq.prompt)
+
+    def tier_prefetch_async(self, prompt_tokens) -> bool:
+        """Queue a background job that stages the prompt's disk-held chain
+        links (those missing from HBM) up to the host arena, so the restore
+        at admission pays only the host -> device hop. Touches the tier store
+        and read-only index probes alone (thread-safe); the worker never
+        touches the device."""
+        store = self._kvtier
+        if store is None or not self.cfg.kv_tier_prefetch:
+            return False
+        keys = self._chain_keys([int(t) for t in np.asarray(prompt_tokens).reshape(-1)])
+        if not keys:
+            return False
+        pending = [k for k in keys if self.allocator.lookup(k) is None]
+        if not pending:
+            return False
+        return store.prefetch(pending, sig=keys[-1])
+
+    def kv_tier_stats(self) -> dict | None:
+        """The tier store's counters and occupancy (None with tiering off)."""
+        return None if self._kvtier is None else self._kvtier.stats()
+
     def _ensure_capacity(self, seq: _SeqState, upto: int) -> bool:
         """Grow seq's block table to cover positions [0, upto); False if the
         pool can't satisfy it right now. Admitted sequences draw from their
@@ -678,6 +1257,23 @@ class RaggedInferenceEngine:
     def _release(self, seq: _SeqState) -> None:
         self._reserved -= seq.reserved_remaining  # return unused reservation
         seq.reserved_remaining = 0
+        if seq.handoff and seq.status == "finished":
+            # prefill-stage retirement: PARK the blocks (refcounts held) for
+            # export_handoff; only the slot and the reservation return.
+            # Cancel and timeout fall through to the free below.
+            self.block_tables[seq.slot, :] = 0
+            self._bt_dirty.add(seq.slot)
+            self._slot_feed[seq.slot] = False
+            self._free_slots.append(seq.slot)
+            del self._running[seq.slot]
+            seq.slot = -1
+            self._handoffs[seq.uid] = seq
+            self._results[seq.uid] = seq
+            return
+        if self.cfg.enable_prefix_cache:
+            # publish BEFORE free: blocks whose last referent drops here go
+            # to the evictable LRU instead of the free list
+            self._publish_prompt_blocks(seq)
         self.allocator.free(seq.blocks)
         seq.blocks = []
         self.block_tables[seq.slot, :] = 0
@@ -729,19 +1325,53 @@ class RaggedInferenceEngine:
     def _admit_queued(self) -> None:
         """Pass 2: admit queued requests in arrival order while slots remain
         (their prompt chunks are scheduled by pass 3); admission reserves the
-        request's worst-case block count so admitted work always finishes."""
+        request's worst-case block count so admitted work always finishes.
+
+        With the prefix cache on, admission first restores the request's
+        demoted chain links (``kv_tier``), then splices the longest cached
+        full-block prefix into its block table (references taken before the
+        reservation check, since ``free_blocks`` counts refcount-0 cached
+        blocks as allocatable, and given back on pool pressure) and
+        reserves only the remainder; ``seq.pos`` starts past the cached
+        region, so the tail (at least one token) prefills as a cold
+        prompt's last chunk would."""
+        use_cache = self.cfg.enable_prefix_cache
+        bs = self.cfg.block_size
         while self._queued and self._free_slots:
             seq = self._queued[0]
             worst = self._worst_case_blocks(seq)
+            if use_cache and self._kvtier is not None:
+                self._tier_admit(seq)
+            hit = self._match_prefix(seq.prompt) if use_cache else []
+            if hit:
+                self.allocator.acquire(hit)
+                worst -= len(hit)
             if worst > self.allocator.free_blocks - self._reserved:
+                if hit:
+                    self.allocator.free(hit)  # back to the LRU's MRU end
                 break  # pool pressure: retry admission as blocks free up
             self._queued.pop(0)
+            if seq.expected_cached and len(hit) * bs < seq.expected_cached:
+                # the placement-time probe promised more than admission found
+                self.prefix_stale_probes += 1
             seq.slot = self._free_slots.pop()
             seq.reserved_remaining = worst
             self._reserved += worst
+            if hit:
+                seq.blocks = list(hit)
+                seq.cached_prefix = len(hit) * bs
+                seq.pos = seq.cached_prefix
+                self.block_tables[seq.slot, :len(hit)] = hit
+                self._bt_dirty.add(seq.slot)
             self._running[seq.slot] = seq
             if self.cfg.device_state:
                 self._write_slot_row(seq)
+            if use_cache:
+                if hit:
+                    self.prefix_hits += 1
+                    self.prefix_tokens_reused += seq.cached_prefix
+                else:
+                    self.prefix_misses += 1
 
     def _plan_prefill_tiles(self, nd: int, budget: int):
         """Pick tile-aligned prompt chunks for this step. Returns
@@ -1048,13 +1678,17 @@ class RaggedInferenceEngine:
         """A host array on the engine's device, without blocking the host."""
         return self._host(arr).to(self.device, non_blocking=True)
 
-    def _write_slot_row(self, seq: _SeqState) -> None:
+    def _write_slot_row(self, seq: _SeqState, iv: np.ndarray | None = None,
+                        fv: np.ndarray | None = None) -> None:
         """Admission: write one slot's persistent device row in place. The
         last token is 0 until the prompt-completing dispatch picks one (a
-        sequence admitted past its prompt feeds its token at ``pos``)."""
-        tok = seq.token_at(seq.pos) if seq.pos >= len(seq.prompt) else 0
-        iv = np.asarray([tok, seq.pos, seq.seed, len(seq.prompt), seq.top_k], np.int32)
-        fv = np.asarray([seq.temperature, seq.top_p], np.float32)
+        sequence admitted past its prompt feeds its token at ``pos``).
+        ``iv`` / ``fv``: the row as given (an imported handoff's snapshot)."""
+        if iv is None:
+            tok = seq.token_at(seq.pos) if seq.pos >= len(seq.prompt) else 0
+            iv = np.asarray([tok, seq.pos, seq.seed, len(seq.prompt), seq.top_k], np.int32)
+            fv = np.asarray([seq.temperature, seq.top_p], np.float32)
+        iv, fv = np.asarray(iv, np.int32), np.asarray(fv, np.float32)
         self.h2d_bytes += iv.nbytes + fv.nbytes + 4  # and the row index
         ivd, fvd = self._upload(iv), self._upload(fv)
         tok_st, pos_st, seed_st, plen_st, temp_st, topk_st, topp_st = self._dev_state

@@ -726,3 +726,123 @@ def test_dense_engine_graphs_match_eager(cuda, dtype):
         eng.programs.on_card = True
         assert np.array_equal(graph, eager)
     assert eng.programs.captures == 4 and eng.programs.replays > 0
+
+
+# ------------------------------ prefix splice, tier restore, handoff import
+SHARED_PREFIX = [11, 7, 3, 5, 2, 13, 17, 19]  # two full blocks of 4
+TRANSFER_MODES = {"fused": GRAPH_MODES["fused"], "fused_spec": GRAPH_MODES["fused_spec"]}
+
+
+def _transfer_run(mode, graphs: bool):
+    """On the tiny engine with the prefix cache and tiers (a 13-block pool,
+    a 4-block host arena): warmup() captures the programs first, then a
+    prefix splice, a churn that demotes the prefix, a tier restore, and a
+    handoff record (made by an eager prefill engine) imported, each served
+    by programs captured before the scatter wrote the pool. Returns tokens,
+    the pool, the engine and the tier counters."""
+    import tempfile
+
+    from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
+    from deepspeed_tpu_torch.models import llama
+
+    over = dict(ENGINE_RCFG, **TRANSFER_MODES[mode], enable_prefix_cache=True, num_blocks=13,
+                kv_tier=True, kv_tier_host_blocks=4)
+    with tempfile.TemporaryDirectory() as d:
+        eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
+                                    RaggedConfig(**over, kv_tier_dir=d), dtype=torch.float32,
+                                    seed=0)
+        if not graphs:
+            eng.programs.on_card = False
+        eng.warmup()
+        eng.warmup(sampled=True, has_tk=True)
+        pre = RaggedInferenceEngine(eng.spec, RaggedConfig(**ENGINE_RCFG), dtype=torch.float32,
+                                    params=eng.params)
+        pre.programs.on_card = False
+        out = {}
+        for rnd in range(2):
+            eng.put(f"warm{rnd}", SHARED_PREFIX + [23, 29, 31], max_new_tokens=6)
+            out.update(eng.generate_all())
+            eng.put(f"g{rnd}", SHARED_PREFIX + [37, 41], max_new_tokens=8)
+            eng.put(f"s{rnd}", SHARED_PREFIX + [37, 41], max_new_tokens=8, temperature=0.9,
+                    top_k=20, seed=123)
+            out.update(eng.generate_all())
+            for i in range(6):  # churn: the prefix demotes
+                eng.put(f"c{rnd}{i}", [(50 + i * 7 + j) % 97 for j in range(9)],
+                        max_new_tokens=4)
+                out.update(eng.generate_all())
+        pre.put("h", SHARED_PREFIX + [43, 47, 53], max_new_tokens=8, handoff=True,
+                temperature=0.9, top_k=20, seed=5)
+        pre.generate_all()
+        assert eng.import_handoff(pre.export_handoff("h"))
+        out.update(eng.generate_all())
+        stats = eng.kv_tier_stats()
+        eng._kvtier.close()
+    torch.cuda.synchronize()
+    return out, eng.cache, eng, stats
+
+
+@pytest.mark.parametrize("mode", list(TRANSFER_MODES))
+def test_transfers_write_the_pool_the_graphs_replay(cuda, mode):
+    """A prefix splice, a tier restore (blocks scattered back into the pool)
+    and a handoff import (blocks scattered in) served by fused and scheduler
+    graphs captured before any of them: the replays give the tokens and the
+    pool of the same engine run eagerly, so the scatter wrote the pool
+    tensors the graphs hold, in place."""
+    out_g, cache_g, eng, stats = _transfer_run(mode, graphs=True)
+    out_e, cache_e, ref, _ = _transfer_run(mode, graphs=False)
+    assert eng.programs.replays > 0 and eng.prefix_hits >= 4
+    assert stats["demotions"] > 0 and stats["promotions"] > 0 and eng.kv_blocks_imported > 0
+    assert out_g == out_e and len(out_g["h"]) == 8
+    blocks = slice(1, None)  # scratch block 0: the scheduler's pad lanes write it at once
+    assert torch.equal(cache_g["k"][:, blocks], cache_e["k"][:, blocks])
+    assert torch.equal(cache_g["v"][:, blocks], cache_e["v"][:, blocks])
+
+
+def test_gather_scatter_leave_decode_workspace(cuda):
+    """Block gathers and scatters move ``k`` and ``v`` only, in place: the
+    cache keeps its pool tensors and its decode workspace, whose buffers
+    they do not touch."""
+    eng = _graph_engine("fused", torch.bfloat16, graphs=True)
+    ws = eng.cache["decode_workspace"]
+    ptrs = (eng.cache["k"].data_ptr(), eng.cache["v"].data_ptr(), ws.part.data_ptr(),
+            ws.counters.data_ptr())
+    eng.put("r", list(range(1, 12)), max_new_tokens=6)
+    eng.generate_all()
+    torch.cuda.synchronize()
+    part, counters = ws.part.clone(), ws.counters.clone()
+    payload = eng._gather_blocks([1, 2, 3])
+    assert set(payload) == {"k", "v"} and payload["k"].device.type == "cpu"
+    eng._scatter_blocks([4, 5, 6], payload)
+    torch.cuda.synchronize()
+    assert eng.cache["decode_workspace"] is ws
+    assert (eng.cache["k"].data_ptr(), eng.cache["v"].data_ptr(), ws.part.data_ptr(),
+            ws.counters.data_ptr()) == ptrs
+    # the partials are scratch (NaN where no call wrote): compared as bits
+    assert torch.equal(ws.part.view(torch.int32), part.view(torch.int32))
+    assert torch.equal(ws.counters, counters)
+    assert torch.equal(eng.cache["k"][:, 4:7], eng.cache["k"][:, 1:4])
+    assert torch.equal(eng.cache["v"][:, 4:7], eng.cache["v"][:, 1:4])
+
+
+@pytest.mark.parametrize("pos0", [32, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_prefill_kernel_on_a_tail_after_a_prefix_hit(cuda, dtype, pos0):
+    """Kernel 5 at Llama-3-8B's shapes on the chunk a prefix hit of pos0 /
+    32 blocks leaves: tiles of 128 that start at a block edge but not at a
+    tile edge (a full tile, a partial last one, another sequence's tail
+    starting at 480), within chip_smoke.py's limits."""
+    shape = SHAPES["llama3_8b"]
+    hq, hkv, d, nb, bs, mb = shape
+    ct = 128
+    rng = np.random.default_rng(pos0)
+    kp, vp, bt = _pools(rng, shape, 3, dtype, cuda)
+    tiles = [(0, pos0, ct), (0, pos0 + ct, ct - 37), (1, 480, 32), (3, 0, 0)]
+    last = {}
+    for s, p0, v in tiles:
+        if v:
+            last[s] = max(last.get(s, 0), (p0 + v - 1) // bs)
+    q = torch.tensor(rng.normal(size=(len(tiles) * ct, hq, d)), dtype=dtype, device=cuda)
+    bt_k, bt_p = _tables(bt, last, cuda)
+    meta = [torch.tensor(c, dtype=torch.int32, device=cuda) for c in zip(*tiles)]
+    valid_rows = np.concatenate([np.arange(ct) < v for _, _, v in tiles])
+    _check_prefill((q, kp, vp, *meta), bt_k, bt_p, ct, valid_rows)

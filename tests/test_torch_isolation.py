@@ -23,6 +23,7 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.inference.engine",
     "deepspeed_tpu_torch.inference.sampling",
     "deepspeed_tpu_torch.inference.cuda_graphs",
+    "deepspeed_tpu_torch.inference.kvtier",
     "deepspeed_tpu_torch.utils.prng",
     "deepspeed_tpu_torch.config.base",
     "deepspeed_tpu_torch.config.config",

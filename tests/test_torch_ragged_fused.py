@@ -197,14 +197,21 @@ def test_warmup_prepares_the_family_and_leaves_state(tile):
 
 def test_config_validation():
     """The reference's rules and messages: fused_chunk is 0 or >= 2, and a
-    fused engine needs a window of at least one chunk."""
+    fused engine needs a window of at least one chunk; the reference's
+    fields this port does not run yet refuse, naming their ROADMAP item."""
     with pytest.raises(ValueError, match="fused_chunk must be 0"):
         _engine(fused_chunk=1)
     with pytest.raises(ValueError, match="pipeline_depth must be >= 1"):
         _engine(fused_chunk=2, depth=0)
     _engine(depth=0)  # the window is not read without fused chunks
-    with pytest.raises(TypeError):
-        RaggedConfig(enable_prefix_cache=True)  # not ported
+    assert RaggedConfig(enable_prefix_cache=True).enable_prefix_cache  # ported
+    with pytest.raises(NotImplementedError, match="item 6"):
+        RaggedInferenceEngine(llama.build(llama.LlamaConfig(**CFG)), RaggedConfig(quant="fp8"),
+                              dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        RaggedInferenceEngine(llama.build(llama.LlamaConfig(**CFG)),
+                              RaggedConfig(headroom_admission=True), dtype=torch.float32,
+                              device="cpu")
 
 
 BENCH_RAGGED = dict(device_state=True, decode_run_ahead=chip_smoke.RUN_AHEAD, fused_chunk=16,
