@@ -37,7 +37,8 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    path: device-resident scheduler state with decode run-ahead 48, its
    decode-only programs replayed as CUDA graphs; warm-up run, measured run
    (graph replays, eager dispatches, H2D bytes in all and in steady decode,
-   launches counted per replay), then a profiled run;
+   launches counted per replay), then a profiled run whose device sums
+   from the kineto records are held to ``key_averages()``'s;
 5b. parity_device: greedy tokens of the device-resident engine, with and
    without run-ahead, of the fused engine on the device path and on the
    host-staged path, and (parity_sched) of the device and fused paths with
@@ -96,6 +97,24 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    ``from_bytes`` into a fused decode engine: tokens gated equal to a
    single engine's in fp32 at 2 layers, bf16 streams differing from
    engine_fused's counted; bytes a record and export / import ms;
+5l. kv_quant: low-bit KV pools (``bench.py:1180-1249``'s ``--kv-quant``):
+   ``quantize_kv_rows`` on the card bit for bit the CPU's; ``quant="int8"``
+   and ``"fp8"`` on the fused config over the workload, each measured
+   after a warm run (no capture, every dispatch a replay, 0 paged kernel
+   launches: a quantized pool takes the plain path that dequantizes in its
+   gather, counted; block and pool bytes; a replayed int8 decode step
+   bit-identical to eager); the tier round trip of int8 payloads at 8B
+   after ``warmup()`` (12 requests of kv_tier's workload: demotions,
+   spills, host promotions, prefetch hits, restore ms a block by tier, the
+   tiers' bytes at the quantized block's); int8 handoff records at 8B;
+   ``bench.py:1381-1414``'s drift probe (printed, not gated); in fp32 at 2
+   layers the int8 tokens of the device, fused, scheduler and speculation
+   paths equal the host-staged int8 engine's, and the tier round trip and
+   a handoff of int8 payloads reproduce the cold int8 tokens;
+5m. woq: ``quantize_params`` on the card bit for bit the CPU's, ``woq8``
+   and ``woq4`` on the fused config over the workload, each measured after
+   a warm run (weights' bytes, tokens/s, the paged kernels launched as in
+   bf16), the dense engine through ``init_inference(dtype="int8")``;
 6. train: ``initialize`` with the config of ``bench.py:trial_main``, 2
    warm-up and 8 timed steps on fresh ``default_rng(0)`` batches with the
    flash kernels' launch counts per step, tokens/s, MFU and peak memory;
@@ -124,7 +143,7 @@ import subprocess
 import sys
 import time
 import traceback
-from functools import partial
+from functools import lru_cache, partial
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM, dense bf16 tensor cores
@@ -249,10 +268,12 @@ class PowerSampler:
 
 
 # ------------------------------------------------------------ kernel cases
-def decode_case(torch, np, dtype, d=D):
-    """T = 32 tokens: 28 sequences with contexts 1..560 on and around block
-    edges, each in its own slot with blocks drawn from a permutation of the
-    pool, plus 4 padding tokens (slot max_seqs, position 0); head dim d."""
+@lru_cache(maxsize=1)
+def _decode_arrays(np, d: int):
+    """decode_case's host arrays at head dim d, its K, V and Q as float32
+    (the float64 draws rounded once, as the cast to a device dtype rounds
+    them): the head-dim checks reuse them across dtypes instead of drawing
+    gigabytes again (4.7 GB of float64 a call at d = 2048)."""
     rng = np.random.default_rng(0)
     pos = [0, 30, 31, 32, 33, 63, 64, 95, 96, 127, 128, 159, 160, 255, 256, 257,
            300, 383, 384, 400, 447, 448, 500, 511, 512, 530, 558, 559]
@@ -264,33 +285,54 @@ def decode_case(torch, np, dtype, d=D):
             bt[s, j] = next(perm)
     slots = list(range(len(pos))) + [max_seqs] * 4
     pos = pos + [0] * 4
-    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
-    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
-    q = torch.tensor(rng.normal(size=(len(pos), HQ, d)), dtype=dtype, device="cuda")
+    kp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
+    vp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
+    q = rng.normal(size=(len(pos), HQ, d)).astype(np.float32)
+    return q, kp, vp, slots, pos, bt
+
+
+def decode_case(torch, np, dtype, d=D):
+    """T = 32 tokens: 28 sequences with contexts 1..560 on and around block
+    edges, each in its own slot with blocks drawn from a permutation of the
+    pool, plus 4 padding tokens (slot max_seqs, position 0); head dim d."""
+    q, kp, vp, slots, pos, bt = _decode_arrays(np, d)
+    f = dict(dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
-    return (q, kp, vp, torch.tensor(slots, **i32), torch.tensor(pos, **i32),
+    return (torch.from_numpy(q).to(**f), torch.from_numpy(kp).to(**f),
+            torch.from_numpy(vp).to(**f), torch.tensor(slots, **i32), torch.tensor(pos, **i32),
             torch.tensor(bt, **i32))
 
 
-def prefill_case(torch, np, dtype, d=D):
-    """8 tiles of CT = 128 as the engine lays out a 1024-token step: a 512-
-    token prompt (4 tiles), a 228-token prompt (pad rows), a 64-token prompt
-    (pad rows) and one all-pad tile; head dim d."""
+PREFILL_TILES = [(0, 0, 128), (0, 128, 128), (0, 256, 128), (0, 384, 128),
+                 (1, 0, 128), (1, 128, 100), (2, 0, 64), (32, 0, 0)]
+
+
+@lru_cache(maxsize=1)
+def _prefill_arrays(np, d: int):
+    """prefill_case's host arrays at head dim d (float32, as _decode_arrays)."""
     rng = np.random.default_rng(1)
     ct, max_seqs = 128, 32
-    tiles = [(0, 0, 128), (0, 128, 128), (0, 256, 128), (0, 384, 128),
-             (1, 0, 128), (1, 128, 100), (2, 0, 64), (max_seqs, 0, 0)]
     bt = np.zeros((max_seqs + 1, MB), np.int32)
     perm = iter(rng.permutation(np.arange(1, NB)))
     for s, length in ((0, 512), (1, 228), (2, 64)):
         for j in range(-(-length // BS)):
             bt[s, j] = next(perm)
-    kp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
-    vp = torch.tensor(rng.normal(size=(NB, BS, HKV, d)), dtype=dtype, device="cuda")
-    q = torch.tensor(rng.normal(size=(len(tiles) * ct, HQ, d)), dtype=dtype, device="cuda")
+    kp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
+    vp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
+    q = rng.normal(size=(len(PREFILL_TILES) * ct, HQ, d)).astype(np.float32)
+    return q, kp, vp, bt
+
+
+def prefill_case(torch, np, dtype, d=D):
+    """8 tiles of CT = 128 as the engine lays out a 1024-token step: a 512-
+    token prompt (4 tiles), a 228-token prompt (pad rows), a 64-token prompt
+    (pad rows) and one all-pad tile (slot max_seqs = 32); head dim d."""
+    q, kp, vp, bt = _prefill_arrays(np, d)
+    f = dict(dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
-    meta = [torch.tensor(c, **i32) for c in zip(*tiles)]
-    return (q, kp, vp, *meta, torch.tensor(bt, **i32)), ct
+    meta = [torch.tensor(c, **i32) for c in zip(*PREFILL_TILES)]
+    return (torch.from_numpy(q).to(**f), torch.from_numpy(kp).to(**f),
+            torch.from_numpy(vp).to(**f), *meta, torch.tensor(bt, **i32)), 128
 
 
 def decode_work(args):
@@ -701,6 +743,8 @@ def head_dims_phase(torch, np, pa, fa, llama, engine_mod) -> None:
     emit("head_dim_time", head_dim=HEAD_DIM_TIMED, dtype="bfloat16", decode_shape="decode_case",
          prefill_shape="prefill_case", flash_shape=[*HEAD_DIM_FLASH, HEAD_DIM_TIMED],
          ms=head_dim_times(torch, np, pa, fa, HEAD_DIM_TIMED))
+    _decode_arrays.cache_clear()
+    _prefill_arrays.cache_clear()
 
     cfg = llama.LlamaConfig.tiny()
     fa.reset_counts()
@@ -811,11 +855,17 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_phase(torch, work, phase="profile"):
+def profile_phase(torch, work, phase="profile", cross_check=False):
     """``work()`` under torch.profiler, CUDA activity alone (no host
     events: recording and averaging those took most of the profiled runs'
     time): device time by kernel class and the device's busy share of the
-    wall time (the profiler's own host overhead lengthens that wall time)."""
+    wall time (the profiler's own host overhead lengthens that wall time).
+    The device events are summed by name straight from the profiler's
+    kineto records (``prof.profiler.kineto_results``, not a public
+    interface): building ``key_averages()``'s Python events for ~10^5
+    kernels took 20-80 s a profiled run. ``cross_check``: also sum them
+    through ``key_averages()`` and fail unless both give the same events
+    and times by class (to 0.1 % of the busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -823,21 +873,46 @@ def profile_phase(torch, work, phase="profile"):
         work()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    t1 = time.perf_counter()
+    kernels: dict[str, list] = {}  # name -> [count, device ns]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0, 0])
+            k[0] += 1
+            k[1] += e.duration_ns()
     by_class: dict[str, float] = {}
-    for e in kernels:
-        c = kernel_class(e.key)
-        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    for name, (_, ns) in kernels.items():
+        c = kernel_class(name)
+        by_class[c] = by_class.get(c, 0.0) + ns / 1e6
     busy = sum(by_class.values())
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    aggregate_s = time.perf_counter() - t1
+    check = {}
+    if cross_check:
+        t2 = time.perf_counter()
+        avg: dict[str, float] = {}
+        events = 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                c = kernel_class(e.key)
+                avg[c] = avg.get(c, 0.0) + e.self_device_time_total / 1e3
+                events += e.count
+        diff = max(abs(avg.get(c, 0.0) - by_class.get(c, 0.0)) for c in {*avg, *by_class})
+        check = dict(key_averages_ms_by_class=avg, key_averages_events=events,
+                     kineto_events=sum(n for n, _ in kernels.values()),
+                     key_averages_max_abs_diff_ms=diff,
+                     key_averages_s=time.perf_counter() - t2, torch=torch.__version__)
     emit(phase, wall_ms=wall * 1e3, device_busy_ms=busy,
          device_busy_share=busy / (wall * 1e3), device_ms_by_class=by_class,
-         top_kernels=[{"name": e.key[:90], "count": e.count,
-                       "device_ms": e.self_device_time_total / 1e3} for e in top],
-         activities="cuda")
+         top_kernels=[{"name": name[:90], "count": n, "device_ms": ns / 1e6}
+                      for name, (n, ns) in top],
+         activities="cuda", stop_s=t1 - (t0 + wall), aggregate_s=aggregate_s, **check)
     if busy <= 0:
         raise AssertionError(f"{phase}: the profiler recorded no device time")
+    if check and (check["key_averages_events"] != check["kineto_events"]
+                  or check["key_averages_max_abs_diff_ms"] > 1e-3 * busy):
+        raise AssertionError(f"{phase}: the kineto records and key_averages() disagree: "
+                             f"{check} against {by_class}")
 
 
 def engine_phase(torch, np, llama, ragged, pa):
@@ -1093,7 +1168,8 @@ def engine_device_phase(torch, np, llama, ragged, pa, host_run: dict):
             f"over the {d['steady_clean_dispatches']} with no dirty table row")
     if d["graph_replays"] <= 0:
         raise AssertionError("engine_device: no CUDA graph was replayed")
-    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_device")
+    profile_phase(torch, lambda: run(eng, prompts, MAX_NEW), phase="profile_device",
+                  cross_check=True)
     return launches, eng, dict(generated_tokens_per_s=gen / wall, forwards=d["forwards"])
 
 
@@ -2354,9 +2430,9 @@ KV_TIER_GROUPS, KV_TIER_PREFIX, KV_TIER_REQ = 3, 2 * BS, 24
 KV_TIER_ARRIVAL_STEPS = 2
 
 
-def kv_tier_workload(np, vocab):
+def kv_tier_workload(np, vocab, n_req=KV_TIER_REQ):
     rng = np.random.default_rng(0)
-    n_uniq = KV_TIER_REQ // 2
+    n_uniq = n_req // 2
     prefixes = [rng.integers(0, vocab, (KV_TIER_PREFIX,), dtype=np.int32)
                 for _ in range(KV_TIER_GROUPS)]
     reqs = []
@@ -2364,19 +2440,24 @@ def kv_tier_workload(np, vocab):
         p = np.concatenate([prefixes[u % KV_TIER_GROUPS], rng.integers(
             0, vocab, (max(PROMPT_LENS) - KV_TIER_PREFIX,), dtype=np.int32)])
         reqs.append((u, p, {} if u % 2 == 0 else dict(SEEDED, seed=1000 + u)))
-    reqs = [reqs[i % n_uniq] for i in range(KV_TIER_REQ)]
+    reqs = [reqs[i % n_uniq] for i in range(n_req)]
     rng.shuffle(reqs)
     return reqs
 
 
-def kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs, directory):
-    """One tiered run of ``reqs`` arriving every KV_TIER_ARRIVAL_STEPS steps:
-    (pairs of identical occurrences, tier stats, restore ms a block by
-    tier, launches, plain calls, wall seconds, whether the pool is clean)."""
+def kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs, directory, quant="off"):
+    """One tiered run of ``reqs`` arriving every KV_TIER_ARRIVAL_STEPS steps
+    after ``warmup()``: pairs of identical occurrences, tier stats, restore
+    ms a block by tier, paged launches, plain and quantized-path calls,
+    captures during the run, wall seconds, whether the pool is clean."""
     eng = ragged.RaggedInferenceEngine(
-        spec, ragged.RaggedConfig(**{**ENGINE, **FUSED, **KV_TIER, "kv_tier_dir": directory}),
+        spec, ragged.RaggedConfig(**{**ENGINE, **FUSED, **KV_TIER, "kv_tier_dir": directory,
+                                     "quant": quant}),
         dtype=dtype, params=params)
-    eng.warmup()
+    t0 = time.perf_counter()
+    programs = eng.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
     store = eng._kvtier
     restores = {1: [0, 0.0], 2: [0, 0.0]}  # blocks, seconds of restores reaching tier t
     note = store.note_restored
@@ -2389,6 +2470,7 @@ def kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs, directory):
 
     store.note_restored = timed
     pending, uniq, step = list(reqs), {}, 0
+    captures0 = eng.programs.captures
     pa.reset_counts()
     t0 = time.perf_counter()
     while pending or eng.has_work:
@@ -2407,16 +2489,24 @@ def kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs, directory):
     by_u: dict = {}
     for uid, toks in out.items():
         by_u.setdefault(uniq[uid], []).append(toks)
-    pairs = sum(len(v) == 2 and v[0] == v[1] for v in by_u.values())
-    first = divergence({u: v[1] for u, v in by_u.items()}, {u: v[0] for u, v in by_u.items()})
-    stats = eng.kv_tier_stats()
-    clean = pool_clean(eng) and all(len(v) == MAX_NEW for v in out.values())
+    res = dict(
+        requests=len(reqs), pairs_identical=sum(len(v) == 2 and v[0] == v[1]
+                                                for v in by_u.values()),
+        pairs=len(by_u),
+        first_differing_token_of_second_occurrence=divergence(
+            {u: v[1] for u, v in by_u.items()}, {u: v[0] for u, v in by_u.items()}),
+        tier_stats=eng.kv_tier_stats(), block_bytes=eng._block_bytes(),
+        restore_ms_per_block={("host" if t == 1 else "disk"): (s * 1e3 / n if n else None)
+                              for t, (n, s) in restores.items()},
+        restored_blocks={("host" if t == 1 else "disk"): n for t, (n, _) in restores.items()},
+        warmup_programs=programs, warmup_s=warmup_s,
+        graph_captures_in_run=eng.programs.captures - captures0, kernel_launches=launches,
+        plain_version_calls=plain, quantized_path_calls=quantized_calls(pa), wall_s=wall,
+        pool_clean=pool_clean(eng) and all(len(v) == MAX_NEW for v in out.values()))
     store.close()
     del eng
     gc.collect()
-    ms = {("host" if t == 1 else "disk"): (s * 1e3 / n if n else None)
-          for t, (n, s) in restores.items()}
-    return pairs, first, stats, ms, launches, plain, wall, clean
+    return res
 
 
 def kv_tier_phase(torch, np, llama, ragged, pa, weights, params32) -> dict:
@@ -2433,22 +2523,16 @@ def kv_tier_phase(torch, np, llama, ragged, pa, weights, params32) -> dict:
     root = os.path.join("runs", f"kvtier-chip-smoke-{os.getpid()}")
     cfg2, p32 = params32
     try:
-        res = {}
+        out = {}
         for name, spec, dtype, params in (("bf16", llama.build(cfg), torch.bfloat16, weights),
                                           ("fp32_2_layers", llama.build(cfg2), torch.float32,
                                            p32)):
-            res[name] = kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs,
+            out[name] = kv_tier_run(torch, ragged, pa, spec, dtype, params, reqs,
                                     os.path.join(root, name))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     bytes_per_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.hd * 2
-    out = {}
-    for name, (pairs, first, stats, ms, launches, plain, wall, clean) in res.items():
-        out[name] = dict(pairs_identical=pairs, pairs=KV_TIER_REQ // 2,
-                         first_differing_token_of_second_occurrence=first, tier_stats=stats,
-                         restore_ms_per_block=ms, kernel_launches=launches,
-                         plain_version_calls=plain, wall_s=wall, pool_clean=clean)
     emit("kv_tier", model="llama3_8b", source="bench.py:1203-1251",
          ragged_config=dict(ENGINE, **FUSED, **KV_TIER), requests=KV_TIER_REQ,
          prefix_groups=KV_TIER_GROUPS, prefix_tokens=KV_TIER_PREFIX,
@@ -2479,12 +2563,12 @@ def kv_tier_phase(torch, np, llama, ragged, pa, weights, params32) -> dict:
     return bf["kernel_launches"]
 
 
-def handoff_split(torch, ragged, pa, spec, dtype, params, prompts):
+def handoff_split(torch, ragged, pa, spec, dtype, params, prompts, quant="off"):
     """The workload through a prefill engine (``put(handoff=True)``) and a
     fused decode engine that shares its weights: each record exported,
     through ``to_bytes`` / ``from_bytes``, imported. Returns (tokens,
     stats, launches, plain calls)."""
-    rcfg = ragged.RaggedConfig(**ENGINE, **FUSED)
+    rcfg = ragged.RaggedConfig(**ENGINE, **FUSED, quant=quant)
     pre = ragged.RaggedInferenceEngine(spec, rcfg, dtype=dtype, params=params)
     dec = ragged.RaggedInferenceEngine(spec, rcfg, dtype=dtype, params=params)
     pa.reset_counts()
@@ -2559,6 +2643,369 @@ def handoff_phase(torch, np, llama, ragged, pa, weights, params32, fused_tokens)
     if failed:
         raise AssertionError(f"handoff: {failed}")
     return launches
+
+# --------------------------------------------------------- low-bit serving
+# Llama-3-8B's KV block (32 layers, k and v, 32 tokens, 8 KV heads, head dim
+# 128): an int8 or fp8 payload and an fp16 scale a row and head, against
+# fp16; and its weights in bf16, woq8 and woq4 (blocks of 256, the embedding
+# kept bf16)
+KV_BLOCK_BYTES = {"quantized": 2 * 32 * BS * HKV * (D + 2), "fp16": 2 * 32 * BS * HKV * D * 2}
+WEIGHT_BYTES = {"bf16": 16_060_522_496, "woq8": 8_673_124_352, "woq4": 4_920_795_136}
+# bench.py:1381-1414's drift probe: the first 3 prompts cut to 32 tokens, 12
+# new tokens, 2 slots, the scheduler with speculation, off against the codec
+DRIFT_PROBE = dict(max_seqs=2, sched_steps=8, spec_draft=4)
+DRIFT_PROMPTS, DRIFT_PROMPT_TOKENS, DRIFT_NEW = 3, 32, 12
+# the tier round trip and the handoff of quantized payloads, cut down from
+# kv_tier's 24 requests and handoff's 32 (the tier run at Llama-3-8B in bf16
+# and in fp32 at 2 layers)
+KVQ_TIER_REQ, KVQ_HANDOFF_REQ = 12, 8
+# the fp32 gate at 2 layers: each path against the host-staged engine
+KVQ_PARITY = {"device_run_ahead": dict(device_state=True, decode_run_ahead=RUN_AHEAD),
+              "fused": FUSED, "sched": SCHED, "spec": SPEC}
+
+
+def codec_rows(np, n: int = 512):
+    """KV rows at the 8B shapes ([n, 8 KV heads, 128]) over magnitudes
+    1e-3..30, with a zero row, a row whose fp16 scale rounds to 0 (0 / 0
+    cells), one whose int8 scale is subnormal, and saturating values."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(n, HKV, D)) * rng.uniform(1e-3, 30, size=(n, HKV, 1)))
+    x = x.astype(np.float32)
+    x[0] = 0.0
+    x[1, 0] = 0.0
+    x[1, 0, :6] = [1e-9, 0, -1e-9, 0, 3e-7, 1e-12]
+    x[2, 1] = 0.0
+    x[2, 1, :3] = [5e-6, -5e-6, 1e-6]
+    x[3] = 1e4
+    return x
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bytes (NaNs included)."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+
+
+def quant_engine(ragged, spec, dtype, params, quant, **over):
+    return ragged.RaggedInferenceEngine(spec, ragged.RaggedConfig(**{**ENGINE, **over,
+                                                                      "quant": quant}),
+                                        dtype=dtype, params=params)
+
+
+def quantized_calls(pa) -> int:
+    return pa.quantized_decode_attention.calls + pa.quantized_prefill_attention.calls
+
+
+def drift_probe(torch, ragged, spec, params, prompts, quant: str):
+    """bench.py's drift probe: (tokens, spec accept rate)."""
+    rcfg = ragged.RaggedConfig(max_tokens_per_step=ENGINE["max_tokens_per_step"], block_size=BS,
+                               num_blocks=2 * MB + 1, max_blocks_per_seq=MB, quant=quant,
+                               **DRIFT_PROBE)
+    eng = ragged.RaggedInferenceEngine(spec, rcfg, dtype=torch.bfloat16, params=params)
+    for i in range(DRIFT_PROMPTS):
+        eng.put(i, prompts[i][:DRIFT_PROMPT_TOKENS], max_new_tokens=DRIFT_NEW)
+    toks = eng.generate_all()
+    torch.cuda.synchronize()
+    acc = eng.spec_accepted / eng.spec_proposed if eng.spec_proposed else None
+    return toks, acc
+
+
+def warm_measured(torch, pa, eng, prompts, phase: str) -> dict:
+    """A fused engine's warm run of the workload (capturing each program at
+    its first dispatch), then its measured run: tokens/s, the schedule, the
+    replays, paged launches and quantized-path calls of the measured run."""
+    first_s = warm_run(torch, eng, prompts, phase)
+    out, wall, launches, plain, d, power = measured_run(torch, pa, eng, prompts)
+    gen = sum(len(v) for v in out.values())
+    return dict(out=out, first_run_s_with_captures=first_s, wall_s=wall,
+                generated_tokens_per_s=gen / wall,
+                useful_tokens_per_s=(sum(len(p) for p in prompts) + gen) / wall,
+                steps=d["steps"], forwards=d["forwards"],
+                schedule=[d["steps"], d["scheduled_tokens"], d["padded_tokens"]],
+                graph_replays=d["graph_replays"], eager_dispatches=d["eager_dispatches"],
+                graph_captures=d["graph_captures"], kernel_launches=launches,
+                plain_version_calls=plain, quantized_path_calls=quantized_calls(pa),
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), **power)
+
+
+def warm_gates(name: str, r: dict, eng, vocab: int, quantized: bool) -> list:
+    """What a warm fused run of the workload must show: 32 streams of 48
+    tokens in the vocabulary, the JAX schedule, every dispatch a replay and
+    no capture, no leaked block; on a quantized pool 0 paged launches and
+    quantized-path calls, else the paged kernels and no quantized call."""
+    failed = []
+    out = r["out"]
+    if len(out) != N_REQ or any(len(v) != MAX_NEW or not all(0 <= t < vocab for t in v)
+                                for v in out.values()):
+        failed.append(f"{name}: a stream of the wrong length or vocabulary")
+    if tuple(r["schedule"]) != FUSED_SCHEDULE or eng.allocator.free_blocks != \
+            eng.cfg.num_blocks - 1:
+        failed.append(f"{name}: schedule {r['schedule']} (want {FUSED_SCHEDULE}) or a leak")
+    if r["graph_captures"] or r["eager_dispatches"] or r["graph_replays"] != r["steps"]:
+        failed.append(f"{name}: after the warm run {r['graph_captures']} captures, "
+                      f"{r['eager_dispatches']} eager, {r['graph_replays']} replays of "
+                      f"{r['steps']} dispatches")
+    launches, qcalls = r["kernel_launches"], r["quantized_path_calls"]
+    if r["plain_version_calls"] or (
+            (max(launches.values()) or qcalls <= 0) if quantized
+            else (min(launches.values()) <= 0 or qcalls)):
+        failed.append(f"{name}: paged launches {launches}, plain calls "
+                      f"{r['plain_version_calls']}, quantized calls {qcalls}")
+    return failed
+
+
+def kv_quant_phase(torch, np, llama, ragged, pa, weights, params32, fused_run) -> dict:
+    """Low-bit KV pools at Llama-3-8B (bf16 compute) on the reference bench's
+    serving configuration: the codec on the card against the CPU bit for
+    bit; ``quant="int8"`` and ``"fp8"`` on the 32-request workload, each
+    measured after a warm run (0 captures, every dispatch a replay, 0 paged
+    kernel launches, the quantized path counted, block bytes, one captured
+    int8 decode step bit-identical to eager); the tier round trip of int8
+    payloads after ``warmup()`` (demotions, spills, host promotions and
+    prefetch hits, restore ms a block by tier, the tiers' bytes at the
+    quantized block's), the handoff of int8 records (bytes, export /
+    import ms) and bench.py's drift probe (the verdict printed, not gated:
+    random weights leave close logits); in fp32 at 2 layers the device,
+    fused, scheduler and speculation paths' int8 tokens equal the
+    host-staged int8 engine's, and int8 payloads restored from the tiers or
+    imported by handoff reproduce the cold int8 tokens. Returns the int8
+    run's paged kernel launches (0) and quantized calls."""
+    import shutil
+
+    from deepspeed_tpu_torch.inference import kvquant
+
+    failed = []
+    x = torch.from_numpy(codec_rows(np))
+    codec_bits = {}
+    for name in kvquant.CODECS:
+        c = kvquant.get_codec(name)
+        qc, sc = kvquant.quantize_kv_rows(x.cuda(), c)
+        qh, sh = kvquant.quantize_kv_rows(x, c)
+        codec_bits[name] = same_bits(torch, qc, qh) and same_bits(torch, sc, sh)
+    if not all(codec_bits.values()):
+        failed.append(f"quantize_kv_rows on the card differs from the CPU: {codec_bits}")
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = llama.build(cfg)
+    prompts = requests(np, cfg.vocab_size)
+    # int8 and fp8 pools on the fused config, each measured warm
+    runs, graph, launches, stats0 = {}, None, None, None
+    for quant in ("int8", "fp8"):
+        eng = quant_engine(ragged, spec, torch.bfloat16, weights, quant, **FUSED)
+        stats = eng.kv_quant_stats()
+        pool_bytes = sum(eng.cache[k].nbytes for k in ("k", "v"))
+        r = warm_measured(torch, pa, eng, prompts, quant)
+        failed += warm_gates(quant, r, eng, cfg.vocab_size, quantized=True)
+        if (stats["block_bytes"], stats["fp16_block_bytes"]) != (KV_BLOCK_BYTES["quantized"],
+                                                                KV_BLOCK_BYTES["fp16"]):
+            failed.append(f"{quant}: block bytes {stats}, want {KV_BLOCK_BYTES}")
+        if pool_bytes != ENGINE["num_blocks"] * KV_BLOCK_BYTES["quantized"]:
+            failed.append(f"{quant}: pool bytes {pool_bytes}")
+        out = r.pop("out")
+        runs[quant] = dict(r, pool_bytes=pool_bytes, kv_quant_stats=eng.kv_quant_stats(),
+                           bf16_streams_differing_from_engine_fused=sum(
+                               out[i] != fused_run["tokens"][i] for i in out))
+        if quant == "int8":
+            stats0, launches = stats, r["kernel_launches"]
+            graph = graph_vs_eager(torch, np, llama, eng)
+            if not graph["bit_identical"]:
+                failed.append(f"int8: a replayed decode step differs from eager: {graph}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the tier round trip of int8 payloads, at 8B in bf16 and in fp32 at 2
+    # layers (there: every pair identical)
+    cfg2, p32 = params32
+    spec2 = llama.build(cfg2)
+    treqs = kv_tier_workload(np, cfg.vocab_size, KVQ_TIER_REQ)
+    root = os.path.join("runs", f"kvquant-chip-smoke-{os.getpid()}")
+    try:
+        tier = kv_tier_run(torch, ragged, pa, spec, torch.bfloat16, weights, treqs,
+                           os.path.join(root, "bf16"), quant="int8")
+        tier32 = kv_tier_run(torch, ragged, pa, spec2, torch.float32, p32, treqs,
+                             os.path.join(root, "fp32_2_layers"), quant="int8")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    st = tier["tier_stats"]
+    for key in ("demotions", "spills", "promotions_host", "prefetch_hits"):
+        if st[key] <= 0:
+            failed.append(f"int8 tiers: {key} = {st[key]}")
+    if tier["block_bytes"] != KV_BLOCK_BYTES["quantized"] or \
+            st["host_bytes"] != st["host_blocks"] * KV_BLOCK_BYTES["quantized"]:
+        failed.append(f"int8 tiers: block bytes {tier['block_bytes']}, host bytes "
+                      f"{st['host_bytes']} of {st['host_blocks']} blocks")
+    if tier32["pairs_identical"] != tier32["pairs"] or tier32["tier_stats"]["promotions"] <= 0:
+        failed.append(f"fp32 int8 tiers: {tier32['pairs_identical']} of {tier32['pairs']} "
+                      f"pairs identical, {tier32['tier_stats']['promotions']} promotions")
+    for name, r in (("int8 tiers", tier), ("fp32 int8 tiers", tier32)):
+        if r["tier_stats"]["codec"] != "int8" or r["tier_stats"]["sweep_removed"] or \
+                not r["pool_clean"] or max(r["kernel_launches"].values()) or \
+                r["plain_version_calls"] or r["quantized_path_calls"] <= 0:
+            failed.append(f"{name}: {r}")
+
+    # the handoff of int8 records at 8B: bytes and ms (streams against the
+    # bf16 engine_fused's counted)
+    hprompts = prompts[:KVQ_HANDOFF_REQ]
+    hout, hstats, hlaunch, hplain = handoff_split(torch, ragged, pa, spec, torch.bfloat16,
+                                                  weights, hprompts, quant="int8")
+    if max(hlaunch.values()) or hplain or hstats["kv_blocks_exported"] != \
+            hstats["kv_blocks_imported"] or not hstats["pools_clean"]:
+        failed.append(f"handoff int8: {hstats}, launches {hlaunch}, plain {hplain}")
+
+    # bench.py's drift probe, off against int8
+    base, base_acc = drift_probe(torch, ragged, spec, weights, prompts, "off")
+    qtok, q_acc = drift_probe(torch, ragged, spec, weights, prompts, "int8")
+    verdict = kvquant.drift_verdict(
+        kvquant.token_match_rate(base, qtok),
+        abs(q_acc - base_acc) if base_acc is not None and q_acc is not None else None)
+    torch.cuda.empty_cache()
+
+    # fp32 at 2 layers: every path against the host-staged int8 engine, and
+    # the handoff against cold int8 tokens
+    rng = np.random.default_rng(2)
+    pprompts = [rng.integers(0, cfg.vocab_size, (n,), dtype=np.int32)
+                for n in (40, 64, 100, 33, 150, 7, 80, 129)]
+    host = quant_engine(ragged, spec2, torch.float32, p32, "int8", device_state=False)
+    want32 = run(host, pprompts, MAX_NEW)
+    del host
+    parity = {}
+    for name, over in KVQ_PARITY.items():
+        e = quant_engine(ragged, spec2, torch.float32, p32, "int8", **over)
+        runs32 = [run(e, pprompts, MAX_NEW) for _ in range(2)]  # the second replays
+        parity[name] = dict(tokens_identical=all(r == want32 for r in runs32),
+                            graph_replays=e.programs.replays)
+        del e
+    if not all(v["tokens_identical"] and v["graph_replays"] > 0 for v in parity.values()):
+        failed.append(f"fp32 int8 paths against the host-staged engine: {parity}")
+    single = quant_engine(ragged, spec2, torch.float32, p32, "int8", **FUSED)
+    hwant = run(single, hprompts, MAX_NEW)
+    del single
+    hout32, hstats32, _, _ = handoff_split(torch, ragged, pa, spec2, torch.float32, p32,
+                                           hprompts, quant="int8")
+    hsame = sum(hout32[i] == hwant[i] for i in hwant)
+    if hsame != len(hprompts):
+        failed.append(f"fp32 int8 handoff: {hsame} of {len(hprompts)} streams equal")
+    torch.cuda.empty_cache()
+
+    emit("kv_quant", model="llama3_8b", dtype="bfloat16", source="bench.py:1180-1249,1381-1414",
+         ragged_config=dict(ENGINE, **FUSED), requests=N_REQ, new_tokens_each=MAX_NEW,
+         codec_bits_equal_cpu=codec_bits, kv_block_bytes=KV_BLOCK_BYTES,
+         resident_multiplier_vs_fp16=stats0["resident_multiplier_vs_fp16"],
+         runs=runs, int8_graph_vs_eager_bf16=graph,
+         engine_fused_generated_tokens_per_s=fused_run["generated_tokens_per_s"],
+         tiers_int8=dict(tier, ragged_config=dict(ENGINE, **FUSED, **KV_TIER),
+                         prefix_groups=KV_TIER_GROUPS, prefix_tokens=KV_TIER_PREFIX,
+                         prompt_tokens=max(PROMPT_LENS),
+                         arrival_every_steps=KV_TIER_ARRIVAL_STEPS),
+         handoff_int8=dict(requests=len(hprompts), **hstats,
+                           bf16_streams_differing_from_engine_fused=sum(
+                               hout[i] != fused_run["tokens"][i] for i in hout)),
+         drift_probe=dict(DRIFT_PROBE, prompts=DRIFT_PROMPTS, prompt_tokens=DRIFT_PROMPT_TOKENS,
+                          new_tokens=DRIFT_NEW, spec_accept_rate_off=base_acc,
+                          spec_accept_rate_int8=q_acc, verdict=verdict),
+         fp32_2_layers=dict(reduced="depth 32 -> 2 layers", paths_vs_host_staged=parity,
+                            tiers=tier32, handoff_streams_equal_to_single_engine=hsame,
+                            handoff=hstats32),
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if failed:
+        raise AssertionError(f"kv_quant: {failed}")
+    return launches, runs["int8"]["quantized_path_calls"]
+
+
+def woq_phase(torch, np, llama, ragged, dense_mod, pa, weights, fused_run) -> dict:
+    """Weight-only quantization at Llama-3-8B: ``quantize_params`` on the
+    card against the CPU bit for bit (a slice of the weights with a zero
+    and a tiny block), ``woq8`` and ``woq4`` on the bench's fused config
+    over the 32-request workload, each measured after a warm run (tokens/s
+    beside engine_fused's, the paged kernels launched as in bf16, the
+    weights' bytes), and the dense engine through
+    ``init_inference(dtype="int8")``. Returns the woq runs' launches."""
+    from deepspeed_tpu_torch.ops import quantizer
+
+    failed = []
+    sub = {"layers": {"wq": weights["layers"]["wq"][:1].clone(),
+                      "w_down": weights["layers"]["w_down"][:1].clone(),
+                      "attn_norm": weights["layers"]["attn_norm"][:1].clone()},
+           "lm_head": weights["lm_head"][:, :8192].contiguous(),
+           "embed": weights["embed"][:16].clone()}
+    sub["layers"]["wq"][0, 0, :256] = 0.0
+    sub["layers"]["wq"][0, 1, :256] = 1e-30
+    host = {k: (v.cpu() if not isinstance(v, dict) else {n: w.cpu() for n, w in v.items()})
+            for k, v in sub.items()}
+    params_bits = {}
+    for bits in (8, 4):
+        got = dict(named_leaves(quantizer.quantize_params(sub, bits)))
+        want = dict(named_leaves(quantizer.quantize_params(host, bits)))
+        params_bits[bits] = set(got) == set(want) and all(
+            (same_bits(torch, got[k].values, want[k].values)
+             and same_bits(torch, got[k].scales, want[k].scales))
+            if isinstance(want[k], quantizer.QuantizedWeight) else same_bits(torch, got[k], want[k])
+            for k in want)
+    if not all(params_bits.values()):
+        failed.append(f"quantize_params on the card differs from the CPU: {params_bits}")
+    del sub, host
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    spec = llama.build(cfg)
+    prompts = requests(np, cfg.vocab_size)
+    runs, total = {}, {}
+    for quant in ("woq8", "woq4"):
+        t0 = time.perf_counter()
+        eng = quant_engine(ragged, spec, torch.bfloat16, weights, quant, **FUSED)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        nbytes = quantizer.params_nbytes(eng.params)
+        r = warm_measured(torch, pa, eng, prompts, quant)
+        failed += warm_gates(quant, r, eng, cfg.vocab_size, quantized=False)
+        if nbytes != WEIGHT_BYTES[quant]:
+            failed.append(f"{quant}: weights {nbytes} B, want {WEIGHT_BYTES[quant]}")
+        out = r.pop("out")
+        runs[quant] = dict(r, weight_bytes=nbytes, quantize_s=quantize_s,
+                           bf16_streams_differing_from_engine_fused=sum(
+                               out[i] != fused_run["tokens"][i] for i in out))
+        add_counts(total, r["kernel_launches"])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the dense engine through init_inference(dtype="int8"): woq8, bf16
+    # compute; padded batches of 8 prompts of 128 tokens, 16 new
+    t0 = time.perf_counter()
+    dense = dense_mod.init_inference(spec, {"dtype": "int8", "params": weights})
+    torch.cuda.synchronize()
+    dquant_s = time.perf_counter() - t0
+    batch = np.stack([p[:128] for p in prompts if len(p) >= 128][:8])
+    first = dense.generate(batch, max_new_tokens=16)
+    torch.cuda.synchronize()
+    captures = dense.programs.captures
+    t0 = time.perf_counter()
+    again = dense.generate(batch, max_new_tokens=16)
+    torch.cuda.synchronize()
+    dwall = time.perf_counter() - t0
+    dres = dict(quantize_bits=dense.quantize_bits, weight_bytes=quantizer.params_nbytes(
+        dense.params), quantize_s=dquant_s, batch=list(batch.shape), new_tokens_each=16,
+        repeat_wall_s=dwall, generated_tokens_per_s=batch.shape[0] * 16 / dwall,
+        repeat_captures=dense.programs.captures - captures,
+        repeat_identical=bool(np.array_equal(first, again)))
+    if dres["weight_bytes"] != WEIGHT_BYTES["woq8"] or dres["repeat_captures"] or \
+            not dres["repeat_identical"] or not (0 <= again[:, 128:]).all() or \
+            not (again[:, 128:] < cfg.vocab_size).all():
+        failed.append(f"dense woq8: {dres}")
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("woq", model="llama3_8b", dtype="bfloat16", ragged_config=dict(ENGINE, **FUSED),
+         requests=N_REQ, new_tokens_each=MAX_NEW, params_bits_equal_cpu=params_bits,
+         weight_bytes_bf16=WEIGHT_BYTES["bf16"], runs=runs, dense_init_inference_int8=dres,
+         engine_fused_generated_tokens_per_s=fused_run["generated_tokens_per_s"],
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if failed:
+        raise AssertionError(f"woq: {failed}")
+    return total
+
 
 # ------------------------------------------------------------------- train
 def train_cfg(llama, layers: int):
@@ -2839,6 +3286,9 @@ def main() -> int:
     tier_launches = kv_tier_phase(torch, np, llama, ragged, pa, weights, params32)
     handoff_launches = handoff_phase(torch, np, llama, ragged, pa, weights, params32,
                                      fused_run["tokens"])
+    # 5l. low-bit KV pools and 5m. weight-only quantization on the same weights
+    kvq_launches, _ = kv_quant_phase(torch, np, llama, ragged, pa, weights, params32, fused_run)
+    woq_launches = woq_phase(torch, np, llama, ragged, dense_mod, pa, weights, fused_run)
     del weights, params32
     gc.collect()
     torch.cuda.empty_cache()
@@ -2874,6 +3324,8 @@ def main() -> int:
                             launches_prefix_cache=prefix_launches.get(name),
                             launches_kv_tier=tier_launches.get(name),
                             launches_handoff=handoff_launches.get(name),
+                            launches_kv_quant_int8=kvq_launches.get(name),
+                            launches_woq=woq_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

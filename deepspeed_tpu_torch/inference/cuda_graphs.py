@@ -70,7 +70,9 @@ from deepspeed_tpu_torch.ops.cuda import paged_attention as _paged
 COUNTERS = ((_paged.paged_decode_attention, "launches"),
             (_paged.ragged_prefill_attention, "launches"),
             (_paged.paged_decode_attention_ref, "calls"),
-            (_paged.ragged_prefill_attention_ref, "calls"))
+            (_paged.ragged_prefill_attention_ref, "calls"),
+            (_paged.quantized_decode_attention, "calls"),
+            (_paged.quantized_prefill_attention, "calls"))
 
 
 def _counts() -> list[int]:

@@ -15,9 +15,16 @@ from then on, as the reference compiles one program a signature; the
 sampling values (temperature, top-k, top-p, penalty, seed) are written
 into the buffers, so changing them captures nothing.
 
+Weight-only quantization (``quantize_bits`` 8 or 4, or ``quant``'s
+``woq8`` / ``woq4``; ``init_inference``'s ``dtype="int8"`` and ``quant``
+section) keeps the weights int8 / int4 (``ops/quantizer.py``), dequantized
+a layer at a time inside the programs. A KV codec in ``quant`` applies to
+the paged pool of ``RaggedInferenceEngine`` and is inert here, as is
+``qcol`` on one device; both are logged.
+
 Not ported yet, and refused: tensor parallelism (``ROADMAP.md`` queue 1
-item 12), weight quantization (item 6) and checkpoint loading (item 10).
-The telemetry span waits for item 14.
+item 12) and checkpoint loading (item 10). The telemetry span waits for
+item 14.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.inference import kvquant
 from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
 from deepspeed_tpu_torch.inference.ragged import cast_params
 from deepspeed_tpu_torch.inference.sampling import sample_tokens, update_seen
 from deepspeed_tpu_torch.models.api import ModelSpec
+from deepspeed_tpu_torch.ops.quantizer import quantize_params
 from deepspeed_tpu_torch.utils import prng
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -100,7 +109,8 @@ class InferenceEngine:
     another device; without a CUDA device and without ``device`` it
     raises. ``params`` (the stacked layout of ``models/llama.py``) are used
     in place when they already have ``dtype`` and lie on the device, so
-    engines can share one weight set."""
+    engines can share one weight set; ``quantize_bits`` (or ``quant``'s
+    ``woqN``) quantizes them in blocks of ``quantize_block``."""
 
     def __init__(self, model: ModelSpec, mp_size: int = 1, dtype=torch.bfloat16,
                  params: Any = None, checkpoint: str | None = None, seed: int = 0,
@@ -110,15 +120,11 @@ class InferenceEngine:
             raise NotImplementedError(
                 "tensor-parallel inference (mp_size > 1) is not ported yet: "
                 "ROADMAP.md queue 1 item 12 (parallelism beyond ZeRO)")
-        if quantize_bits or quant != "off":
-            raise NotImplementedError(
-                "weight and KV quantization (quantize_bits, quant) is not ported yet: "
-                "ROADMAP.md queue 1 item 6 (low-bit serving)")
         if checkpoint is not None:
             raise NotImplementedError(
                 "checkpoint loading is not ported yet: ROADMAP.md queue 1 item 10 "
                 "(multi-GPU training and checkpoints)")
-        del quantize_block
+        parsed = kvquant.parse_quant(quant)
         self.device = resolve_device(device)
         self.spec = model
         if self.spec.decode_fn is None or self.spec.init_cache_fn is None:
@@ -128,10 +134,21 @@ class InferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.spec.init_fn(gen, dtype, self.device)
         self.params = cast_params(params, dtype, self.device)
+        if parsed.kv is not None:
+            log_dist(f"InferenceEngine: quant KV codec {parsed.kv.name!r} applies to the paged "
+                     "pool (RaggedInferenceEngine); inert on the dense-cache engine", ranks=[0])
+        if parsed.qcol:
+            log_dist("InferenceEngine: quant '+qcol' quantizes tensor-parallel collectives; "
+                     "one device has none, so it is ignored", ranks=[0])
+        self.quantize_bits = int(quantize_bits) or parsed.woq_bits
+        if self.quantize_bits:
+            self.params = quantize_params(self.params, bits=self.quantize_bits,
+                                          block=quantize_block, skip=tuple(self.spec.woq_skip))
         self.programs = ProgramCache(self.device)
         self._gen_cache: dict = {}
         log_dist(f"InferenceEngine: model={self.spec.name} device={self.device} "
-                 f"dtype={str(dtype).replace('torch.', '')}", ranks=[0])
+                 f"dtype={str(dtype).replace('torch.', '')}"
+                 + (f" woq=int{self.quantize_bits}" if self.quantize_bits else ""), ranks=[0])
 
     def load_checkpoint(self, ckpt_dir: str) -> None:
         raise NotImplementedError(
@@ -187,8 +204,9 @@ def init_inference(model: ModelSpec, config: dict | None = None, **kwargs) -> In
     dict, updated by ``kwargs``, names ``tensor_parallel`` / ``mp_size``,
     ``dtype`` (a string or a torch dtype; unknown names give bf16, as in
     the reference), ``params``, ``checkpoint``, the quantization knobs and
-    ``device``. ``dtype="int8"`` and a ``quant`` section ask for weight
-    quantization, which is refused (queue 1 item 6)."""
+    ``device``. ``dtype="int8"`` (bf16 compute) and a ``quant`` section
+    (``{"weight": {"num_bits": 8 or 4}}``, or a ``RaggedConfig.quant``
+    string) ask for weight-only quantization."""
     config = dict(config or {})
     config.update(kwargs)
     tp = config.get("tensor_parallel", {})

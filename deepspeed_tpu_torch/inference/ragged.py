@@ -68,8 +68,18 @@ move published prefix blocks. Block payloads are CPU torch tensors; every
 device write of a transfer goes into the pool in place, which the captured
 graphs read. Every path reproduces the cold tokens, greedy and seeded.
 
-Low-bit pools, headroom admission, telemetry and fault injection are not
-ported yet (``ROADMAP.md``).
+Low-bit serving (``RaggedConfig.quant``, ``inference/kvquant.py``): a KV
+codec (``int8``, ``fp8``) makes the pool a ``QuantizedKV``, quantized at the
+paged write and dequantized in the gather of its attention (a plain path,
+``ops/attention.py``); the prefix cache, both tiers and both transfer records
+carry its payloads and codec, and an import under another codec raises
+(handoff, disk record) or misses (prefix). ``woq8`` / ``woq4`` (or the
+``quantize_bits`` argument) keep the weights int8 / int4
+(``ops/quantizer.py``), dequantized a layer at a time. Every dispatch mode
+and every captured program runs either.
+
+Headroom admission, telemetry and fault injection are not ported yet
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -83,13 +93,17 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.inference import kvquant
 from deepspeed_tpu_torch.inference.cuda_graphs import LoopProgram, ProgramCache
+from deepspeed_tpu_torch.inference.kvquant import (cat_kv, copy_into, kv_leaves,
+                                                   leaf_to_torch, leaf_to_wire, map_kv)
 from deepspeed_tpu_torch.inference.kvtier import (HANDOFF_MAGIC, KVTierStore, frame_bytes,
                                                   unframe_bytes)
 from deepspeed_tpu_torch.inference.sampling import (accept_drafts, per_request_keys,
                                                     propose_ngram_drafts, sample_tokens)
 from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.models.paged import speculative_lane_layout
+from deepspeed_tpu_torch.ops.quantizer import QuantizedWeight, quantize_params
 from deepspeed_tpu_torch.utils import prng
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -404,9 +418,12 @@ class _SeqState:
 
 def cast_params(tree, dtype: torch.dtype, device: torch.device):
     """Floating leaves in ``dtype`` on ``device``; a leaf already there is
-    kept as is, not copied (engines can share one weight set)."""
+    kept as is, not copied (engines can share one weight set). A weight-only
+    quantized leaf keeps its payload and only moves."""
     if isinstance(tree, dict):
         return {k: cast_params(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, QuantizedWeight):
+        return tree.to(device)
     if tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device=device)
@@ -439,32 +456,22 @@ def batch_flags(seqs) -> tuple[bool, bool, bool]:
 # ------------------------------------------------------ KV block payloads
 def payload_leaves(payload) -> list:
     """The leaves of a block payload (a dict mirroring the paged cache's
-    ``k`` and ``v``, each ``[L, n_blocks, block_size, Hkv, D]``), in the
-    JAX tree order (keys sorted)."""
-    return [] if payload is None else [payload[k] for k in sorted(payload)]
+    ``k`` and ``v``, each ``[L, n_blocks, block_size, Hkv, D]``, or a
+    ``QuantizedKV`` of such a ``q`` and its scales), in the JAX tree order
+    (keys sorted, then ``q``, ``s``)."""
+    return [] if payload is None else [a for k in sorted(payload) for a in kv_leaves(payload[k])]
 
 
 def map_payload(fn, payload):
-    """``fn`` applied to every leaf of a block payload (None stays None)."""
-    return None if payload is None else {k: fn(v) for k, v in payload.items()}
+    """A data movement ``fn`` applied to every leaf tensor of a block
+    payload (``kvquant.map_kv``; None stays None)."""
+    return None if payload is None else {k: map_kv(fn, v) for k, v in payload.items()}
 
 
-def _leaf_to_torch(a) -> torch.Tensor:
-    """A payload leaf as a CPU torch tensor (a JAX engine's records hold
-    numpy arrays)."""
-    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _leaf_to_wire(a):
-    """A payload leaf as ``to_bytes`` pickles it: a numpy array, which the
-    JAX package reads as its own; numpy has no bfloat16, so a bf16 leaf
-    stays a CPU torch tensor (read back bit for bit by this package only)."""
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu()
-        if a.dtype == torch.bfloat16:
-            return a.clone()
-        return a.numpy().copy()
-    return a
+def _payload_to_torch(payload):
+    """A block payload with CPU torch leaves (a JAX engine's records hold
+    numpy arrays; an unpickled ``QuantizedKV`` already holds tensors)."""
+    return None if payload is None else {k: leaf_to_torch(v) for k, v in payload.items()}
 
 
 @dataclass
@@ -495,7 +502,8 @@ class KVHandoff:
     row_fv: np.ndarray = None
     # trace context of the originating request (carried, not read here)
     traceparent: str | None = None
-    # KV codec of block_payload; this package runs "off" only
+    # KV codec of block_payload ("off": an fp payload); an engine under
+    # another codec refuses the record
     codec: str = "off"
     # billing identity (carried, not read here)
     tenant: str = "default"
@@ -517,25 +525,28 @@ class KVHandoff:
     def to_bytes(self) -> bytes:
         """The record with ``HANDOFF_MAGIC`` and length+sha256 framing
         (``kvtier.frame_bytes``): a pickled dict of the fields, payload
-        leaves as numpy arrays (bf16: CPU tensors), so an fp32 record loads
-        in the JAX package too."""
+        leaves as numpy arrays (bf16 and fp8: CPU tensors; a quantized
+        payload a ``QuantizedKV`` under the JAX state keys), so an fp32 or an
+        int8 record loads in the JAX package too."""
         body = {f.name: getattr(self, f.name) for f in fields(self)}
-        body["block_payload"] = map_payload(_leaf_to_wire, self.block_payload)
+        if self.block_payload is not None:
+            body["block_payload"] = {k: leaf_to_wire(v) for k, v in self.block_payload.items()}
         return HANDOFF_MAGIC + frame_bytes(pickle.dumps(body, protocol=4))
 
     @classmethod
     def from_bytes(cls, buf: bytes) -> "KVHandoff":
-        """Inverse of ``to_bytes`` (and of the JAX engine's): raises
-        ValueError for anything short of a byte-exact record (bad magic,
-        torn frame, digest mismatch, trailing bytes)."""
+        """Inverse of ``to_bytes`` (and of the JAX engine's, whose
+        ``QuantizedKV`` loads as this package's, ``kvquant.load_record``):
+        raises ValueError for anything short of a byte-exact record (bad
+        magic, torn frame, digest mismatch, trailing bytes)."""
         buf = bytes(buf)
         if not buf.startswith(HANDOFF_MAGIC):
             raise ValueError("not a KVHandoff record (bad magic)")
         body, end = unframe_bytes(buf, len(HANDOFF_MAGIC))
         if end != len(buf):
             raise ValueError("trailing bytes after KVHandoff frame")
-        rec = cls(**pickle.loads(body))
-        rec.block_payload = map_payload(_leaf_to_torch, rec.block_payload)
+        rec = cls(**kvquant.load_record(body))
+        rec.block_payload = _payload_to_torch(rec.block_payload)
         return rec
 
 
@@ -569,11 +580,12 @@ class RaggedInferenceEngine:
     in one forward; finished sequences free their blocks and their slot is
     reused immediately. Runs on ``cuda:0`` unless ``device`` names another
     device; without a CUDA device and without ``device`` it raises.
+    ``quantize_bits`` (8 or 4) is the older spelling of ``quant``'s ``woqN``.
     """
 
     def __init__(self, model: ModelSpec, ragged_config: RaggedConfig | None = None,
                  dtype=torch.bfloat16, params: dict | None = None, seed: int = 0,
-                 eos_token_id: int | None = None, device=None):
+                 eos_token_id: int | None = None, device=None, quantize_bits: int = 0):
         self.device = resolve_device(device)
         self.cfg = ragged_config or RaggedConfig()
         if self.cfg.fused_chunk == 1 or self.cfg.fused_chunk < 0:
@@ -587,10 +599,7 @@ class RaggedInferenceEngine:
                 raise ValueError("spec_draft requires sched_steps >= 2")
             if self.cfg.spec_ngram < 1:
                 raise ValueError("spec_ngram must be >= 1")
-        if self.cfg.quant != "off":
-            raise NotImplementedError(
-                f"quant={self.cfg.quant!r}: low-bit KV pools and weights are not ported "
-                "yet: ROADMAP.md queue 1 item 6 (low-bit serving)")
+        parsed = kvquant.parse_quant(self.cfg.quant)
         if self.cfg.headroom_admission:
             raise NotImplementedError(
                 "headroom_admission is not ported yet: ROADMAP.md queue 1 item 14 "
@@ -611,8 +620,26 @@ class RaggedInferenceEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.spec.init_fn(gen, dtype, self.device)
         self.params = cast_params(params, dtype, self.device)
-        self.cache = self.spec.init_paged_cache_fn(
-            self.cfg.num_blocks, self.cfg.block_size, dtype, self.device)
+        # ---- low-bit serving (inference/kvquant.py): the KV codec, the
+        # weight-only bits (the quantize_bits argument, or quant's woqN) ----
+        self._kvq = parsed.kv
+        self._kvq_name = parsed.kv.name if parsed.kv else "off"
+        if parsed.qcol:
+            log_dist("ragged engine: quant '+qcol' quantizes tensor-parallel collectives; "
+                     "one device has none, so it is ignored", ranks=[0])
+        self.quantize_bits = int(quantize_bits) or parsed.woq_bits
+        if self.quantize_bits:
+            self.params = quantize_params(self.params, bits=self.quantize_bits,
+                                          skip=tuple(self.spec.woq_skip))
+        self.cache = self._build_cache()
+        if self._kvq is not None:
+            # bytes one block would cost unquantized, at the engine dtype and
+            # at fp16: the baselines of kv_quant_stats
+            self._fp_block_bytes = kvquant.paged_block_bytes(
+                self.spec.init_paged_cache_fn, self.cfg.num_blocks, self.cfg.block_size, dtype)
+            self._fp16_block_bytes = kvquant.paged_block_bytes(
+                self.spec.init_paged_cache_fn, self.cfg.num_blocks, self.cfg.block_size,
+                torch.float16)
         self.allocator = BlockedAllocator(self.cfg.num_blocks)
         # hierarchical KV tiering: the tier store and the allocator's demote
         # hook; None with kv_tier off (an eviction then drops the payload)
@@ -623,7 +650,7 @@ class RaggedInferenceEngine:
                 disk_blocks=self.cfg.kv_tier_disk_blocks, directory=self.cfg.kv_tier_dir,
                 host_gbps=self.cfg.kv_tier_host_gbps, disk_gbps=self.cfg.kv_tier_disk_gbps,
                 prefill_tokens_per_s=self.cfg.kv_tier_prefill_tokens_per_s,
-                bytes_per_token=self.kv_bytes_per_token(), codec="off")
+                bytes_per_token=self.kv_bytes_per_token(), codec=self._kvq_name)
             self.allocator.demote_hook = self._demote_block
         # row max_seqs is the all-zeros padding row -> scratch block 0
         self.block_tables = np.zeros(
@@ -757,8 +784,20 @@ class RaggedInferenceEngine:
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
-            f"blocks={self.cfg.num_blocks}x{self.cfg.block_size}", ranks=[0],
+            f"blocks={self.cfg.num_blocks}x{self.cfg.block_size} kv={self._kvq_name}"
+            + (f" woq=int{self.quantize_bits}" if self.quantize_bits else ""), ranks=[0],
         )
+
+    def _build_cache(self) -> dict:
+        """The paged pool: the model's fp pool with the KV codec off, else a
+        ``QuantizedKV`` pool allocated at storage precision from the model's
+        shapes (no fp pool, even once)."""
+        if self._kvq is None:
+            return self.spec.init_paged_cache_fn(
+                self.cfg.num_blocks, self.cfg.block_size, self.dtype, self.device)
+        return kvquant.build_quantized_paged_cache(
+            self.spec.init_paged_cache_fn, self.cfg.num_blocks, self.cfg.block_size,
+            self.dtype, self._kvq, self.device)
 
     # ------------------------------------------------------------------ put
     def put(self, uid, prompt_tokens, max_new_tokens: int = 64,
@@ -938,13 +977,36 @@ class RaggedInferenceEngine:
 
     def kv_bytes_per_token(self) -> int:
         """Bytes of paged-cache state one token position occupies (``k``
-        and ``v`` over every layer): the bytes side of the tier cost model."""
+        and ``v`` over every layer, a quantized pool's payload and scales):
+        the bytes side of the tier cost model."""
         bs = self.cfg.block_size
         total = 0
         for name in ("k", "v"):
-            a = self.cache[name]
-            total += a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size() // bs
+            for a in kv_leaves(self.cache[name]):
+                total += a.shape[0] * int(np.prod(a.shape[2:])) * a.element_size() // bs
         return total
+
+    def _block_bytes(self) -> int:
+        """Bytes one KV block occupies."""
+        return self.kv_bytes_per_token() * self.cfg.block_size
+
+    def kv_quant_stats(self) -> dict | None:
+        """The low-bit pool's summary (None with the KV codec off):
+        ``resident_multiplier_vs_fp16`` is the blocks a byte gains over an
+        fp16 pool."""
+        if self._kvq is None:
+            return None
+        bb = self._block_bytes()
+        allocated = self.allocator.allocated_total
+        return {
+            "codec": self._kvq_name,
+            "block_bytes": bb,
+            "fp16_block_bytes": self._fp16_block_bytes,
+            "fp_block_bytes": self._fp_block_bytes,
+            "resident_multiplier_vs_fp16": self._fp16_block_bytes / bb,
+            "blocks_allocated_total": allocated,
+            "bytes_saved_total": allocated * (self._fp_block_bytes - bb),
+        }
 
     # ------------------------------------- KV transfer (disaggregated serving)
     @staticmethod
@@ -960,12 +1022,14 @@ class RaggedInferenceEngine:
 
     def _gather_blocks(self, blocks: list[int]) -> dict:
         """The KV of ``blocks`` as CPU tensors ``{"k", "v"}``, each ``[L,
-        n, block_size, Hkv, D]``. Only ``k`` and ``v`` move (a CUDA cache
-        also holds the decode workspace). The read is in stream order behind
-        every dispatch enqueued before it, and waits for it."""
+        n, block_size, Hkv, D]`` (a quantized pool: ``QuantizedKV`` of such a
+        payload and its scales). Only ``k`` and ``v`` move (a CUDA cache also
+        holds the decode workspace). The read is in stream order behind every
+        dispatch enqueued before it, and waits for it."""
         idx = torch.from_numpy(self._block_index(blocks)).to(self.device).long()
         n = len(blocks)
-        return {name: self.cache[name].index_select(1, idx)[:, :n].contiguous().cpu()
+        return {name: map_kv(lambda a: a.index_select(1, idx)[:, :n].contiguous().cpu(),
+                             self.cache[name])
                 for name in ("k", "v")}
 
     def _scatter_blocks(self, blocks: list[int], payload) -> None:
@@ -975,15 +1039,14 @@ class RaggedInferenceEngine:
         padded payload, as the JAX engine counts them."""
         idx = self._block_index(blocks)
         n, r = len(blocks), len(idx)
-        payload = map_payload(_leaf_to_torch, payload)
+        payload = _payload_to_torch(payload)
         if r != n:
             payload = map_payload(lambda a: torch.cat(
                 [a, a.new_zeros((a.shape[0], r - n) + tuple(a.shape[2:]))], dim=1), payload)
         self.h2d_bytes += idx.nbytes + sum(int(a.nbytes) for a in payload_leaves(payload))
         idx_d = torch.from_numpy(idx).to(self.device).long()
         for name in ("k", "v"):
-            pool = self.cache[name]
-            pool.index_copy_(1, idx_d, payload[name].to(self.device, pool.dtype))
+            copy_into(self.cache[name], 1, idx_d, payload[name])
 
     def export_handoff(self, uid) -> KVHandoff | None:
         """Turn a finished prefill-stage request (``put(handoff=True)``)
@@ -1010,7 +1073,7 @@ class RaggedInferenceEngine:
                                   if seq.deadline else 0.0),
             block_payload=payload,
             row_iv=np.asarray([tok, pos, seq.seed, len(seq.prompt), seq.top_k], np.int32),
-            row_fv=np.asarray([seq.temperature, seq.top_p], np.float32))
+            row_fv=np.asarray([seq.temperature, seq.top_p], np.float32), codec=self._kvq_name)
         self._retire_parked(seq)
         return rec
 
@@ -1036,9 +1099,10 @@ class RaggedInferenceEngine:
         could never serve."""
         cfg = self.cfg
         bs = cfg.block_size
-        if h.codec != "off":
+        if h.codec != self._kvq_name:
+            # a payload of another codec would dequantize wrong: never servable
             raise ValueError(f"handoff KV codec {h.codec!r} does not match this engine's "
-                             "quant config 'off'")
+                             f"quant config {self._kvq_name!r}")
         prompt = [int(t) for t in h.prompt]
         total = len(prompt) + int(h.max_new_tokens)
         if total > cfg.max_seq_len:
@@ -1108,7 +1172,7 @@ class RaggedInferenceEngine:
             self.allocator.free(hit)
         self.kv_blocks_exported += len(hit)
         return PrefixPayload(tokens=prompt[:len(hit) * self.cfg.block_size],
-                             block_payload=payload)
+                             block_payload=payload, codec=self._kvq_name)
 
     def import_prefix(self, payload: PrefixPayload | None) -> int:
         """Install transferred prefix blocks into this engine's prefix cache
@@ -1118,8 +1182,8 @@ class RaggedInferenceEngine:
         dropped, never forced; a codec mismatch is a miss."""
         if payload is None or not self.cfg.enable_prefix_cache:
             return 0
-        if payload.codec != "off":
-            return 0
+        if payload.codec != self._kvq_name:
+            return 0  # opportunistic: another codec's blocks are a miss
         bs = self.cfg.block_size
         tokens = [int(t) for t in payload.tokens]
         n = min(payload.n_blocks, len(tokens) // bs)
@@ -1134,8 +1198,8 @@ class RaggedInferenceEngine:
         if missing:
             blocks = alloc.allocate(len(missing))
             sel = torch.tensor(missing)
-            self._scatter_blocks(blocks, map_payload(lambda a: _leaf_to_torch(a)[:, sel],
-                                                     payload.block_payload))
+            self._scatter_blocks(blocks, map_payload(
+                lambda a: a[:, sel], _payload_to_torch(payload.block_payload)))
             for b, i in zip(blocks, missing):
                 alloc.publish(b, keys[i])
             alloc.free(blocks)  # refcount 0 + published -> evictable LRU
@@ -1193,8 +1257,7 @@ class RaggedInferenceEngine:
         if not cand:
             return 0
         blocks = alloc.allocate(len(cand))
-        payload = {name: torch.cat([_leaf_to_torch(p[name]) for _, p, _ in cand], dim=1)
-                   for name in ("k", "v")}
+        payload = {name: cat_kv([p[name] for _, p, _ in cand], dim=1) for name in ("k", "v")}
         self._scatter_blocks(blocks, payload)
         for b, (key, _, _) in zip(blocks, cand):
             alloc.publish(b, key)

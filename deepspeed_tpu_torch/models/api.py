@@ -42,6 +42,9 @@ class ModelSpec:
     # ragged_forward_fn accepts prefill_tiles=(n_dec, tile_slot, tile_pos0,
     # tile_valid, tile) for the tiled-prefill path
     supports_prefill_tiles: bool = False
+    # parameter names weight-only quantization keeps dense (the embedding
+    # gather wants a plain tensor)
+    woq_skip: tuple = ("embed",)
 
 
 def causal_lm_loss(

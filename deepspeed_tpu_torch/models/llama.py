@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_loss
 from deepspeed_tpu_torch.models.paged import (append_kv_and_attend, init_decode_workspace,
                                               ragged_pool_attention, write_kv_paged)
 from deepspeed_tpu_torch.ops.attention import apply_rope, attention
+from deepspeed_tpu_torch.ops.quantizer import dequantize_layer, maybe_dequantize
 
 
 @dataclass(frozen=True)
@@ -104,13 +105,22 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
-def lm_head(cfg: LlamaConfig, params: dict) -> torch.Tensor:
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def lm_head(cfg: LlamaConfig, params: dict, dtype: torch.dtype) -> torch.Tensor:
+    """The output projection in ``dtype``; a weight-only quantized head
+    dequantizes straight into it (the reference dequantizes to fp32 and
+    casts: one rounding of the same fp32 product either way)."""
+    if cfg.tie_embeddings:
+        return params["embed"].T.to(dtype)
+    return maybe_dequantize(params["lm_head"], dtype).to(dtype)
 
 
 # ------------------------------------------------------------------ training
 def _decoder_layer(cfg: LlamaConfig, attn_impl: str, x: torch.Tensor, lp: dict,
                    positions: torch.Tensor | None = None) -> torch.Tensor:
+    # the dense engine's forward() on weight-only quantized weights, one
+    # layer at a time (the reference's ShardCtx.layer_weights); training's
+    # dicts hold no quantized weight and pass through untouched
+    lp = dequantize_layer(lp, x.dtype)
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     if positions is None:
@@ -150,7 +160,7 @@ def forward(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
     """[B, S] int tokens -> [B, S, V] logits."""
     x = hidden_states(cfg, params, input_ids, attn_impl=attn_impl,
                       remat_policy=remat_policy, remat=remat)
-    return x @ lm_head(cfg, params).to(x.dtype)
+    return x @ lm_head(cfg, params, x.dtype)
 
 
 def loss_fn(cfg: LlamaConfig, params: dict, batch: dict, generator=None,
@@ -176,7 +186,9 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 def _cached_layer(cfg: LlamaConfig, x, lp, k_cache, v_cache, start_pos, max_len: int):
     """One decoder layer of a dense prefill or decode step: the new KV is
     appended at ``start_pos`` (in place) and attention runs over the cache
-    under the absolute-position mask (``models/paged.append_kv_and_attend``)."""
+    under the absolute-position mask (``models/paged.append_kv_and_attend``).
+    Weight-only quantized weights dequantize here, one layer at a time."""
+    lp = dequantize_layer(lp, x.dtype)
     b, t, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
 
@@ -207,7 +219,7 @@ def decode_forward(cfg: LlamaConfig, params, tokens, cache, start_pos):
         lp = {name: w[i] for name, w in layers.items()}
         x = _cached_layer(cfg, x, lp, cache["k"][i], cache["v"][i], start_pos, max_len)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
-    return x @ lm_head(cfg, params).to(x.dtype), cache
+    return x @ lm_head(cfg, params, x.dtype), cache
 
 
 def init_paged_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
@@ -232,7 +244,9 @@ def _ragged_layer(cfg: LlamaConfig, x, lp, kc, vc, positions, slots,
     prefill-chunk tokens and decode tokens of different sequences. New KV is
     scattered into the pool (in place) *before* attention, so intra-chunk
     causal attention falls out of the position mask. ``prefill_tiles``: see
-    ``models/paged.ragged_pool_attention``."""
+    ``models/paged.ragged_pool_attention``. Weight-only quantized weights
+    dequantize here, one layer at a time."""
+    lp = dequantize_layer(lp, x.dtype)
     t_tokens, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
 
@@ -272,7 +286,7 @@ def ragged_forward(cfg: LlamaConfig, params, tokens, slots, positions,
                           slots, block_tables, prefill_tiles, attn_impl,
                           cache.get("decode_workspace"))
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
-    logits = x @ lm_head(cfg, params).to(x.dtype)
+    logits = x @ lm_head(cfg, params, x.dtype)
     return logits, cache
 
 

@@ -27,11 +27,15 @@ def write_kv_paged(kc, vc, kk, vv, slots, positions, block_tables):
 
     Writes ``kc``/``vc`` IN PLACE and returns them; the JAX version is
     functional and relies on buffer donation instead. Padding tokens (slot
-    ``max_seqs``, position 0) all land in scratch block 0."""
+    ``max_seqs``, position 0) all land in scratch block 0. This is the one
+    write site of the paged pool, so also its one quantize site: a low-bit
+    pool (``inference/kvquant.QuantizedKV``) quantizes each row here."""
     bs = kc.shape[1]
     positions = positions.long()
     blk = block_tables.long()[slots.long(), positions // bs]    # [T]
     off = positions % bs
+    if getattr(kc, "is_quantized_kv", False):
+        return kc.scatter_rows(blk, off, kk), vc.scatter_rows(blk, off, vv)
     kc[blk, off] = kk.to(kc.dtype)
     vc[blk, off] = vv.to(vc.dtype)
     return kc, vc

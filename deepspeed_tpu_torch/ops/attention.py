@@ -9,6 +9,12 @@ oracle on the card; the engines never pass it. Training attention
 (``attention``) with ``"auto"`` and no bias is the flash-attention autograd
 function; with a bias, or with ``"plain"``, it is ``eager_attention``.
 
+A quantized paged pool (``inference/kvquant.QuantizedKV``) takes
+``quantized_decode_attention`` / ``quantized_prefill_attention`` whatever
+``impl`` says: plain versions that dequantize in the gather, as the
+reference sends such a pool to XLA. The path is chosen by the pool's type,
+never by a kernel's failure.
+
 Layouts: q [B, S, Hq, D], k/v [B, S, Hkv, D] (GQA: Hq % Hkv == 0); the paged
 pool is [NB, BS, Hkv, D].
 """
@@ -81,6 +87,9 @@ def paged_attention(q, k_pool, v_pool, slots, positions, block_tables,
     token t attending positions 0..positions[t] of table row slots[t].
     ``workspace``: the kernel's ``DecodeWorkspace`` (the plain version needs
     none)."""
+    if getattr(k_pool, "is_quantized_kv", False):
+        return _paged.quantized_decode_attention(q, k_pool, v_pool, slots, positions,
+                                                 block_tables, scale=scale)
     if _pick(impl, True, False):
         return _paged.paged_decode_attention(q, k_pool, v_pool, slots, positions,
                                              block_tables, scale=scale, workspace=workspace)
@@ -94,7 +103,10 @@ def ragged_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0,
     """Tiled prefill attention over the blocked pool: ``q`` holds tile-aligned
     prefill tokens (one sequence per ``tile``-token tile, consecutive
     positions, rows past ``tile_valid`` padding, which come out as zeros)."""
-    fn = _pick(impl, _paged.ragged_prefill_attention, _paged.ragged_prefill_attention_ref)
+    if getattr(k_pool, "is_quantized_kv", False):
+        fn = _paged.quantized_prefill_attention
+    else:
+        fn = _pick(impl, _paged.ragged_prefill_attention, _paged.ragged_prefill_attention_ref)
     return fn(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid,
               block_tables, tile, scale=scale)
 

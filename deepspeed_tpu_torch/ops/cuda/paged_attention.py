@@ -18,8 +18,14 @@ above 256 both wrappers launch the wide kernels of ``csrc/wide_head.cu``
 (one query row a warp, the head dim streamed in 256-wide chunks; above 1024
 the rows' fp32 vectors in a workspace the wrapper allocates).
 
+A quantized pool (``inference/kvquant.QuantizedKV``) has no kernel: its
+attention is ``quantized_decode_attention`` / ``quantized_prefill_attention``,
+plain versions that dequantize in the gather, as the reference sends such a
+pool to XLA.
+
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, and each
-plain version its calls in ``<ref>.calls``; ``reset_counts()`` zeroes both.
+plain version its calls in ``<ref>.calls`` (the quantized ones in their
+own ``.calls``); ``reset_counts()`` zeroes them all.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ def decode_splits(tokens: int, hkv: int, table_width: int, sms: int) -> int:
 def reset_counts() -> None:
     for fn in (paged_decode_attention, ragged_prefill_attention):
         fn.launches = 0
-    for fn in (paged_decode_attention_ref, ragged_prefill_attention_ref):
+    for fn in (paged_decode_attention_ref, ragged_prefill_attention_ref,
+               quantized_decode_attention, quantized_prefill_attention):
         fn.calls = 0
 
 
@@ -120,6 +127,63 @@ def ragged_prefill_attention_ref(q, k_pool, v_pool, tile_slot, tile_pos0,
 
 paged_decode_attention_ref.calls = 0
 ragged_prefill_attention_ref.calls = 0
+
+
+def quantized_decode_attention(q, k_pool, v_pool, slots, positions, block_tables,
+                               scale: float | None = None):
+    """Decode over a ``QuantizedKV`` pool (``inference/kvquant.py``): the
+    reference's XLA path for such a pool (``deepspeed_tpu/ops/attention.py:170-190``):
+    the queries scaled in their dtype, the context gathered and dequantized
+    (heads first, ``QuantizedKV.gather_dequant``), scores, softmax and P @ V
+    in fp32. The CUDA kernels take fp pools; this path is chosen by the
+    pool's type, on every device."""
+    quantized_decode_attention.calls += 1
+    t, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    tables = block_tables.long()[slots.long()]                    # [T, MB]
+    ctx_k = k_pool.gather_dequant(tables)                         # [T, Hkv, C, D]
+    ctx_v = v_pool.gather_dequant(tables)
+    qg = (q * scale).float().reshape(t, hkv, hq // hkv, d)
+    scores = qg @ ctx_k.transpose(-1, -2)                         # [T, Hkv, rep, C]
+    kpos = torch.arange(ctx_k.shape[2], device=q.device)
+    visible = kpos[None, :] <= positions.long()[:, None]          # [T, C]
+    scores = torch.where(visible[:, None, None, :], scores, _NEG_INF)
+    out = torch.softmax(scores, dim=-1) @ ctx_v                   # [T, Hkv, rep, D]
+    return out.reshape(t, hq, d).to(q.dtype)
+
+
+def quantized_prefill_attention(q, k_pool, v_pool, tile_slot, tile_pos0, tile_valid,
+                                block_tables, tile: int, scale: float | None = None):
+    """Tiled prefill over a ``QuantizedKV`` pool, one gather a tile as in
+    ``ragged_prefill_attention_ref`` (the reference expands tiles to tokens,
+    which at 8B would gather 2.4 GB a layer), the queries scaled as in
+    ``quantized_decode_attention``; pad rows give zeros."""
+    quantized_prefill_attention.calls += 1
+    n, hq, d = q.shape
+    hkv = k_pool.shape[2]
+    rep, nt = hq // hkv, n // tile
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    tables = block_tables.long()[tile_slot.long()]                # [NT, MB]
+    ctx_k = k_pool.gather_dequant(tables)                         # [NT, Hkv, C, D]
+    ctx_v = v_pool.gather_dequant(tables)
+    qg = (q * scale).float().reshape(nt, tile, hkv, rep, d).permute(0, 2, 3, 1, 4)
+    scores = qg.reshape(nt, hkv, rep * tile, d) @ ctx_k.transpose(-1, -2)
+    scores = scores.view(nt, hkv, rep, tile, -1)                  # [NT, Hkv, rep, CT, C]
+    qi = torch.arange(tile, device=q.device)
+    qpos = tile_pos0.long()[:, None] + qi[None, :]                # [NT, CT]
+    valid = qi[None, :] < tile_valid.long()[:, None]              # [NT, CT]
+    kpos = torch.arange(ctx_k.shape[2], device=q.device)
+    visible = (kpos[None, None, :] <= qpos[:, :, None]) & valid[:, :, None]
+    scores = torch.where(visible[:, None, None], scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1).view(nt, hkv, rep * tile, -1)
+    out = (p @ ctx_v).view(nt, hkv, rep, tile, d).permute(0, 3, 1, 2, 4)
+    out = torch.where(valid[:, :, None, None, None], out, 0.0)   # [NT, CT, Hkv, rep, D]
+    return out.reshape(n, hq, d).to(q.dtype)
+
+
+quantized_decode_attention.calls = 0
+quantized_prefill_attention.calls = 0
 
 
 # ---------------------------------------------------------------- kernels

@@ -438,14 +438,14 @@ GRAPH_KINDS = {"run_ahead": {"step", "chunk"}, "fused": {"fused"}, "fused_tiled"
                "fused_spec": {"fused", "sched"}}
 
 
-def _graph_engine(mode, dtype, graphs: bool):
+def _graph_engine(mode, dtype, graphs: bool, quant: str = "off"):
     """A device-resident engine on the card; ``graphs=False`` runs every
     program eagerly (its program cache treated as off the card)."""
     from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
     from deepspeed_tpu_torch.models import llama
 
     eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
-                                RaggedConfig(**ENGINE_RCFG, **GRAPH_MODES[mode]),
+                                RaggedConfig(**ENGINE_RCFG, **GRAPH_MODES[mode], quant=quant),
                                 dtype=dtype, seed=0)
     if not graphs:
         eng.programs.on_card = False
@@ -458,11 +458,11 @@ SAMPLED = ({}, dict(temperature=0.9, seed=7), dict(temperature=0.7, top_k=5, see
            dict(top_k=3))
 
 
-def _graph_run(mode, dtype, graphs: bool, max_new=24, sampling=({},) * 7):
+def _graph_run(mode, dtype, graphs: bool, max_new=24, sampling=({},) * 7, quant="off"):
     """Tokens, KV pool, launch counts and engine of 7 requests (more than
     the slots) through ``_graph_engine``, each put with its ``sampling``
     controls."""
-    eng = _graph_engine(mode, dtype, graphs)
+    eng = _graph_engine(mode, dtype, graphs, quant)
     rng = np.random.default_rng(11)
     pa.reset_counts()
     for i, (n, kw) in enumerate(zip((3, 4, 5, 8, 9, 13, 17), sampling)):
@@ -733,7 +733,7 @@ SHARED_PREFIX = [11, 7, 3, 5, 2, 13, 17, 19]  # two full blocks of 4
 TRANSFER_MODES = {"fused": GRAPH_MODES["fused"], "fused_spec": GRAPH_MODES["fused_spec"]}
 
 
-def _transfer_run(mode, graphs: bool):
+def _transfer_run(mode, graphs: bool, quant: str = "off"):
     """On the tiny engine with the prefix cache and tiers (a 13-block pool,
     a 4-block host arena): warmup() captures the programs first, then a
     prefix splice, a churn that demotes the prefix, a tier restore, and a
@@ -746,7 +746,7 @@ def _transfer_run(mode, graphs: bool):
     from deepspeed_tpu_torch.models import llama
 
     over = dict(ENGINE_RCFG, **TRANSFER_MODES[mode], enable_prefix_cache=True, num_blocks=13,
-                kv_tier=True, kv_tier_host_blocks=4)
+                kv_tier=True, kv_tier_host_blocks=4, quant=quant)
     with tempfile.TemporaryDirectory() as d:
         eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**ENGINE_CFG)),
                                     RaggedConfig(**over, kv_tier_dir=d), dtype=torch.float32,
@@ -755,8 +755,8 @@ def _transfer_run(mode, graphs: bool):
             eng.programs.on_card = False
         eng.warmup()
         eng.warmup(sampled=True, has_tk=True)
-        pre = RaggedInferenceEngine(eng.spec, RaggedConfig(**ENGINE_RCFG), dtype=torch.float32,
-                                    params=eng.params)
+        pre = RaggedInferenceEngine(eng.spec, RaggedConfig(**ENGINE_RCFG, quant=quant),
+                                    dtype=torch.float32, params=eng.params)
         pre.programs.on_card = False
         out = {}
         for rnd in range(2):
@@ -846,3 +846,130 @@ def test_prefill_kernel_on_a_tail_after_a_prefix_hit(cuda, dtype, pos0):
     meta = [torch.tensor(c, dtype=torch.int32, device=cuda) for c in zip(*tiles)]
     valid_rows = np.concatenate([np.arange(ct) < v for _, _, v in tiles])
     _check_prefill((q, kp, vp, *meta), bt_k, bt_p, ct, valid_rows)
+
+
+# ---------------------------------------------------------------- low-bit
+def _codec_rows():
+    """KV rows at Llama-3-8B's head shapes with a zero row, a row whose fp16
+    scale rounds to 0 and saturating values (tests/test_torch_kvquant.py
+    holds the CPU's bytes to the JAX package's)."""
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(256, 8, 128)) * rng.uniform(1e-3, 30, size=(256, 8, 1)))
+    x = x.astype(np.float32)
+    x[0] = 0.0
+    x[1, 0] = 0.0
+    x[1, 0, :6] = [1e-9, 0, -1e-9, 0, 3e-7, 1e-12]
+    x[2] = 1e4
+    return torch.from_numpy(x)
+
+
+def _bits(t):
+    t = t.detach().cpu().contiguous()
+    return t.view(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_kv_codec_on_the_card_is_bit_identical(cuda, codec):
+    from deepspeed_tpu_torch.inference import kvquant
+
+    x = _codec_rows()
+    c = kvquant.get_codec(codec)
+    qc, sc = kvquant.quantize_kv_rows(x.to(cuda), c)
+    qh, sh = kvquant.quantize_kv_rows(x, c)
+    assert qc.dtype == qh.dtype == c.storage
+    assert torch.equal(_bits(sc), _bits(sh))
+    diff = (_bits(qc) != _bits(qh)).nonzero()[:8, 0].tolist()
+    assert not diff, (diff, _bits(qc)[diff].tolist(), _bits(qh)[diff].tolist())
+    # fp8's 0 / 0 cells dequantize to NaN, whose bits the two devices' products
+    # need not share: compared as values
+    torch.testing.assert_close(kvquant.dequantize_kv_rows(qc, sc).cpu(),
+                               kvquant.dequantize_kv_rows(qh, sh), rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_params_on_the_card_is_bit_identical(cuda, bits):
+    from deepspeed_tpu_torch.models import llama
+    from deepspeed_tpu_torch.ops import quantizer
+
+    cfg = llama.LlamaConfig(**ENGINE_CFG)
+    host = llama.init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16, "cpu")
+    host["layers"]["wq"][0, 0, :] = 0.0       # a zero block
+    host["layers"]["wq"][1, 0, :] = 1e-30     # a block under the 1e-12 floor
+    card = {k: (v.to(cuda) if not isinstance(v, dict) else {n: w.to(cuda) for n, w in v.items()})
+            for k, v in host.items()}
+    want = quantizer.quantize_params(host, bits, block=32)
+    got = quantizer.quantize_params(card, bits, block=32)
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        g, w = got["layers"][name], want["layers"][name]
+        assert torch.equal(_bits(g.values), _bits(w.values))
+        assert torch.equal(_bits(g.scales), _bits(w.scales))
+        assert torch.equal(_bits(quantizer.maybe_dequantize(g[1], torch.bfloat16)),
+                           _bits(quantizer.maybe_dequantize(w[1], torch.bfloat16)))
+    assert torch.equal(_bits(got["lm_head"].values), _bits(want["lm_head"].values))
+    assert got["embed"].data_ptr() == card["embed"].data_ptr()  # kept dense
+
+
+QUANT_GRAPH_MODES = ("plain", "fused", "fused_tiled", "sched", "fused_spec")
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8", "woq8", "int8+woq4"])
+@pytest.mark.parametrize("mode", QUANT_GRAPH_MODES)
+def test_quantized_graphs_replay_bit_identical_to_eager(cuda, mode, quant):
+    """With a low-bit pool (written in place by the captured programs) or
+    low-bit weights, the replays give the eager run's tokens and pool;
+    a quantized pool runs the quantized plain path (counted per replay) and
+    no paged kernel, a woq-only engine the paged kernels."""
+    out_g, cache_g, launches, eng = _graph_run(mode, torch.bfloat16, graphs=True, quant=quant)
+    quantized = pa.quantized_decode_attention.calls + pa.quantized_prefill_attention.calls
+    out_e, cache_e, _, ref = _graph_run(mode, torch.bfloat16, graphs=False, quant=quant)
+    assert eng.programs.replays > 0 and out_g == out_e
+    blocks = slice(1, None) if "sched_steps" in GRAPH_MODES[mode] else slice(None)
+    if quant.startswith("woq"):
+        assert launches[0] > 0 and quantized == 0
+        assert launches[1] > 0 or "prefill_tile" not in GRAPH_MODES[mode]
+        for name in ("k", "v"):
+            assert torch.equal(cache_g[name][:, blocks], cache_e[name][:, blocks])
+    else:
+        assert launches == (0, 0) and quantized > 0
+        for name in ("k", "v"):
+            for a, b in ((cache_g[name].q, cache_e[name].q), (cache_g[name].s, cache_e[name].s)):
+                assert torch.equal(_bits(a[:, blocks]), _bits(b[:, blocks]))
+    assert eng.allocator.free_blocks == ENGINE_RCFG["num_blocks"] - 1
+
+
+@pytest.mark.parametrize("mode", list(TRANSFER_MODES))
+def test_quantized_transfers_write_the_pool_the_graphs_replay(cuda, mode):
+    """``test_transfers_write_the_pool_the_graphs_replay`` on an int8 pool:
+    splices, tier restores and a handoff import write ``q`` and ``s`` in
+    place, where the graphs captured before them read."""
+    out_g, cache_g, eng, stats = _transfer_run(mode, graphs=True, quant="int8")
+    out_e, cache_e, _, _ = _transfer_run(mode, graphs=False, quant="int8")
+    assert eng.programs.replays > 0 and eng.prefix_hits >= 4
+    assert stats["demotions"] > 0 and stats["promotions"] > 0 and eng.kv_blocks_imported > 0
+    assert stats["codec"] == "int8" and out_g == out_e and len(out_g["h"]) == 8
+    for name in ("k", "v"):
+        assert torch.equal(cache_g[name].q[:, 1:], cache_e[name].q[:, 1:])
+        assert torch.equal(cache_g[name].s[:, 1:], cache_e[name].s[:, 1:])
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantized_gather_scatter_in_place(cuda, quant):
+    """Block gathers and scatters of a quantized pool move ``q`` and ``s``
+    in place (the graphs hold their pointers); the pool carries no decode
+    workspace (no paged kernel reads it) and its tensors stay the same."""
+    eng = _graph_engine("fused", torch.bfloat16, graphs=True, quant=quant)
+    assert set(eng.cache) == {"k", "v"}
+    ptrs = [t.data_ptr() for n in ("k", "v") for t in (eng.cache[n].q, eng.cache[n].s)]
+    eng.put("r", list(range(1, 12)), max_new_tokens=6)
+    eng.generate_all()
+    torch.cuda.synchronize()
+    payload = eng._gather_blocks([1, 2, 3])
+    assert payload["k"].q.device.type == "cpu" and payload["k"].codec == quant
+    eng._scatter_blocks([4, 5, 6], payload)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for n in ("k", "v") for t in (eng.cache[n].q, eng.cache[n].s)] == ptrs
+    for name in ("k", "v"):
+        pool = eng.cache[name]
+        assert torch.equal(_bits(pool.q[:, 4:7]), _bits(pool.q[:, 1:4]))
+        assert torch.equal(pool.s[:, 4:7], pool.s[:, 1:4])

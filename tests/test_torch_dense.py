@@ -134,16 +134,38 @@ def test_forward_matches_jax(np_params, jax_engine):
 @pytest.mark.parametrize("config,item", [
     ({"tensor_parallel": {"tp_size": 2}}, "item 12"),
     ({"mp_size": 2}, "item 12"),
-    ({"dtype": "int8"}, "item 6"),
-    ({"quant": {"enabled": True, "weight": {"num_bits": 4}}}, "item 6"),
-    ({"quant": "int8"}, "item 6"),
-    ({"quantize_bits": 8}, "item 6"),
     ({"checkpoint": "/nonexistent"}, "item 10"),
 ])
 def test_init_inference_refuses_unported(np_params, config, item):
     with pytest.raises(NotImplementedError, match=item):
         init_inference(llama.build(llama.LlamaConfig.tiny(VOCAB)),
                        {**config, "params": params_from_numpy(np_params), "device": "cpu"})
+
+
+@pytest.mark.parametrize("config,bits,dtype", [
+    ({"dtype": "int8"}, 8, torch.bfloat16),
+    ({"quant": {"enabled": True, "weight": {"num_bits": 4}}}, 4, torch.bfloat16),
+    ({"quant": "int8"}, 0, torch.bfloat16),  # a KV codec: inert on the dense cache
+    ({"quant": "int8+woq4+qcol", "dtype": "fp32"}, 4, torch.float32),
+    ({"quantize_bits": 8, "dtype": "fp32"}, 8, torch.float32),
+    ({"quant": {"enabled": False}}, 0, torch.bfloat16),
+])
+def test_init_inference_takes_quantization(np_params, config, bits, dtype):
+    """``dtype="int8"``, a ``quant`` section or string and ``quantize_bits``
+    build a weight-only quantized engine (the reference's
+    ``init_inference``), whose tokens are the JAX engine's
+    (tests/test_torch_woq.py)."""
+    from deepspeed_tpu_torch.ops.quantizer import QuantizedWeight
+
+    eng = init_inference(llama.build(llama.LlamaConfig.tiny(VOCAB)),
+                         {**config, "params": params_from_numpy(np_params), "device": "cpu"})
+    assert eng.quantize_bits == bits and eng.dtype == dtype
+    wq = eng.params["layers"]["wq"]
+    assert isinstance(wq, QuantizedWeight) == bool(bits)
+    if bits:
+        assert wq.bits == bits and eng.params["embed"].dtype == dtype
+    out = eng.generate(_prompt(7, 1, 4), max_new_tokens=2)
+    assert out.shape == (1, 6)
 
 
 @pytest.mark.parametrize("dtype,want", [("fp32", torch.float32), (torch.float32, torch.float32),

@@ -24,6 +24,8 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.inference.sampling",
     "deepspeed_tpu_torch.inference.cuda_graphs",
     "deepspeed_tpu_torch.inference.kvtier",
+    "deepspeed_tpu_torch.inference.kvquant",
+    "deepspeed_tpu_torch.ops.quantizer",
     "deepspeed_tpu_torch.utils.prng",
     "deepspeed_tpu_torch.config.base",
     "deepspeed_tpu_torch.config.config",

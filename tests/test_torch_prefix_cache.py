@@ -166,8 +166,11 @@ def test_cached_prefix_len_and_stale_probe():
 
 
 def test_refused_fields_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pc.port_engine(dict(quant="int8"))
+    # low-bit serving is ported (tests/test_torch_kvquant.py): a bad
+    # grammar raises as in the reference
+    assert pc.port_engine(dict(quant="int8", enable_prefix_cache=True))._kvq_name == "int8"
+    with pytest.raises(ValueError, match="unknown component"):
+        pc.port_engine(dict(quant="int3"))
     with pytest.raises(NotImplementedError, match="item 14"):
         pc.port_engine(dict(headroom_admission=True))
     assert RaggedConfig().enable_prefix_cache is False

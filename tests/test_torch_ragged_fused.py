@@ -205,9 +205,9 @@ def test_config_validation():
         _engine(fused_chunk=2, depth=0)
     _engine(depth=0)  # the window is not read without fused chunks
     assert RaggedConfig(enable_prefix_cache=True).enable_prefix_cache  # ported
-    with pytest.raises(NotImplementedError, match="item 6"):
-        RaggedInferenceEngine(llama.build(llama.LlamaConfig(**CFG)), RaggedConfig(quant="fp8"),
-                              dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="more than one KV codec"):  # ported: the grammar
+        RaggedInferenceEngine(llama.build(llama.LlamaConfig(**CFG)),
+                              RaggedConfig(quant="fp8+int8"), dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         RaggedInferenceEngine(llama.build(llama.LlamaConfig(**CFG)),
                               RaggedConfig(headroom_admission=True), dtype=torch.float32,
