@@ -75,6 +75,25 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    replayed graphs match its eager run (bf16 full depth: at most
    ``DENSE_BF16_STREAMS_DIFFER`` streams differ; fp32 at 2 layers: none),
    and one dense call is profiled;
+5g'. the HTTP serving tier (``deepspeed_tpu_torch/serving``), after the serve
+   trial: ``serving``: ``bench.py:serving_bench_main``'s accelerator branch
+   with engine_fused's engine (8B, bf16, no second ``warmup()``) behind
+   ``build_server`` (``max_queue_tokens=2048``), telemetry on with its JSONL
+   sink under runs/, an open-loop Poisson client streaming SSE (48
+   requests of 48 tokens at 8/s): TTFT p50/p99, decode latency, 429s and
+   goodput beside the card, every dispatch a replay and nothing captured,
+   both kernels launched, /healthz ready, /metrics' request count, a clean
+   drain (its launches fill the ``kernels`` line's ``launches_serving``);
+   then in fp32 at 2 layers: ``serving_parity`` (direct runs with
+   telemetry off and on, ``reset_state()`` between: the same dispatches,
+   readbacks and synchronize calls, and the graph-held tensors unmoved;
+   16 requests, half seeded, through HTTP equal to the host-staged
+   engine's; a client ``traceparent`` propagated to the engine's spans),
+   ``serving_cluster`` (``build_cluster_server`` over two engines sharing
+   their weights, 8 requests on two shared 64-token prefixes: every
+   request handed off, the prefix index hit, tokens equal to one engine's)
+   and ``serving_chaos`` (``bench.py:_chaos_bench_impl``'s engine config and
+   fault schedule, its ``checks`` all true);
 5h. decode_steady: ``bench.py:decode_steady_main`` on the same weights:
    the device, host-staged and scheduler paths and the dense engine on 16
    x 96 tokens, the seeded parity matrix of all four dispatch modes
@@ -3185,6 +3204,528 @@ def train_parity_phase(torch, np, llama, engine_mod):
             raise AssertionError(f"train parity {run} {key}: {out[run][key]} > {limit}")
 
 
+# ------------------------------------------------- the HTTP serving tier
+# bench.py:serving_bench_main's accelerator branch (:1153-1157): 48
+# requests of 48 new tokens, Poisson arrivals at 8/s, prompts of
+# 64/128/256/512 tokens from default_rng(0), greedy, SSE, through
+# build_server with max_queue_tokens=2048 (:1238)
+SERVING = dict(n_req=48, max_new=48, rate=8.0, prompt_lens=(64, 128, 256, 512),
+               max_queue_tokens=2048)
+# the fp32 phases' watchdog (bench.py:2212-2213) and the chaos bench's
+# schedule, verbatim (bench.py:2237-2250): a transient dispatch raise, a
+# readback hang, a four-raise dispatch burst and an allocation fault
+# bench.py:2208-2213's chaos engine (its sizes and fused config, the
+# watchdog); here at Llama-3-8B's widths, 2 layers, fp32. Its 3 slots and
+# 16-token budget spread 8 requests over enough dispatches for the
+# schedule's burst to land (on engine_fused's sizes they finish in fewer)
+CHAOS_ENGINE = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=49,
+                    max_blocks_per_seq=16, decode_run_ahead=4, prefill_tile=8, fused_chunk=4,
+                    pipeline_depth=2, device_state=True, dispatch_retries=2,
+                    retry_backoff_s=0.01, degrade_after=2)
+CHAOS_SCHEDULE = [
+    {"point": "engine.dispatch", "kind": "raise", "after": 1},
+    {"point": "engine.readback", "kind": "hang", "after": 6, "delay_s": 0.01},
+    {"point": "engine.dispatch", "kind": "raise", "after": 10, "times": 4},
+    {"point": "engine.alloc", "kind": "raise", "after": 2},
+]
+CHAOS_REQ, CHAOS_NEW = 8, 8
+PARITY_REQ = 16
+CLUSTER_PREFIX = 64
+SERVING_TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+
+
+def http_json(host, port, method, path, body=None, headers=None, timeout=300):
+    """(status, headers, body bytes) of one HTTP request."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def completion(fe, body, headers=None) -> dict:
+    """One completion through the frontend: status, tokens, finish reason,
+    the response's traceparent, and for a stream the arrival time of each
+    token (perf_counter) and the send time."""
+    from deepspeed_tpu_torch.serving import decode_sse
+
+    t_send = time.perf_counter()
+    if not body.get("stream"):
+        status, hdrs, raw = http_json(fe.host, fe.port, "POST", "/v1/completions", body, headers)
+        rec = dict(status=status, traceparent=hdrs.get("traceparent"), t_send=t_send)
+        if status == 200:
+            choice = json.loads(raw)["choices"][0]
+            rec.update(tokens=choice["tokens"], finish=choice["finish_reason"])
+        return rec
+    import http.client
+
+    conn = http.client.HTTPConnection(fe.host, fe.port, timeout=300)
+    rec = dict(t_send=t_send, token_times=[], tokens=[])
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        rec.update(status=resp.status, traceparent=resp.getheader("traceparent"))
+        if resp.status != 200:
+            resp.read()
+            return rec
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data:"):
+                continue
+            frame = decode_sse(line + b"\n")[0]
+            if frame == "[DONE]":
+                break
+            if "token" in frame:
+                rec["token_times"].append(time.perf_counter())
+                rec["tokens"].append(frame["token"])
+            elif "choices" in frame:
+                rec["finish"] = frame["choices"][0]["finish_reason"]
+                rec["final_tokens"] = frame["choices"][0]["tokens"]
+    finally:
+        conn.close()
+    return rec
+
+
+def concurrent(fn, items, stagger_s: float = 0.0, gaps=None) -> list:
+    """``fn(item)`` for each item on its own thread, started ``stagger_s``
+    apart (or at the cumulative ``gaps``, an open-loop schedule): results
+    in item order."""
+    import threading
+
+    out = [None] * len(items)
+    threads = []
+    t0 = time.perf_counter()
+    at = 0.0
+    for i, item in enumerate(items):
+        at += gaps[i] if gaps is not None else (stagger_s if i else 0.0)
+        delay = t0 + at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+
+        def one(i=i, item=item):
+            out[i] = fn(item)
+
+        th = threading.Thread(target=one, daemon=True)
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a request thread hung")
+    return out
+
+
+def metric_value(page: str, name: str) -> float | None:
+    for line in page.splitlines():
+        if line.startswith(name + " ") or line.startswith(name + "{}"):
+            return float(line.split()[-1])
+    return None
+
+
+class SyncCounter:
+    """Counts ``torch.cuda.synchronize`` calls and CUDA event waits (each
+    engine readback is one) while installed."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.syncs = self.waits = 0
+        self._sync, self._wait = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def __enter__(self):
+        counter = self
+
+        def sync(*a, **k):
+            counter.syncs += 1
+            return counter._sync(*a, **k)
+
+        def wait(ev):
+            counter.waits += 1
+            return counter._wait(ev)
+
+        self.torch.cuda.synchronize, self.torch.cuda.Event.synchronize = sync, wait
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize, self.torch.cuda.Event.synchronize = self._sync, self._wait
+
+
+def serving_phase(torch, np, pa, eng) -> dict:
+    """``bench.py:serving_bench_main`` on the card: engine_fused's engine
+    (Llama-3-8B, full depth, bf16, warmed) behind ``build_server`` with
+    telemetry on (JSONL under runs/), an open-loop Poisson client streaming
+    SSE. TTFT, decode latency, 429s and goodput beside the card; gates: every
+    admitted request 200 with 48 tokens in the vocabulary, no capture and
+    every dispatch a replay, both paged kernels launched, /healthz ready,
+    /metrics' request count, a clean drain with no leaked block. Its tokens
+    against the engine's own ``generate_all()`` are counted (bf16 streams of
+    differently batched runs diverge). Returns the paged kernels' launches."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.serving import RouterConfig, build_server
+
+    vocab = int(eng.params["embed"].shape[0])
+    n_req, max_new, rate = SERVING["n_req"], SERVING["max_new"], SERVING["rate"]
+    lens = SERVING["prompt_lens"]
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, (0,), dtype=np.int32).tolist()
+    prompts = [prefix + rng.integers(0, vocab, (int(lens[i % len(lens)]),),
+                                     dtype=np.int32).tolist() for i in range(n_req)]
+    rng.shuffle(prompts)
+    gaps = rng.exponential(1.0 / rate, n_req)
+    os.makedirs("runs", exist_ok=True)
+    jsonl = os.path.join("runs", f"serving-chip-smoke-{os.getpid()}.jsonl")
+    telemetry.configure(enabled=True, jsonl_path=jsonl)
+    p0 = eng.programs
+    before = dict(captures=p0.captures, eager=p0.eager_runs, replays=p0.replays,
+                  dispatches=eng.dispatch_count, forwards=eng.forwards)
+    pa.reset_counts()
+    fe, router, loops = build_server([eng], router_cfg=RouterConfig(
+        max_queue_tokens=SERVING["max_queue_tokens"]))
+    sampler = PowerSampler()
+    try:
+        t0 = time.perf_counter()
+        recs = concurrent(lambda p: completion(fe, {"prompt": p, "max_tokens": max_new,
+                                                    "stream": True}), prompts, gaps=gaps)
+        wall = time.perf_counter() - t0
+        _, _, raw = http_json(fe.host, fe.port, "GET", "/healthz")
+        health = json.loads(raw)
+        _, _, page = http_json(fe.host, fe.port, "GET", "/metrics")
+        page = page.decode()
+    finally:
+        power = sampler.stop()
+        drained = fe.drain(timeout=120)
+        telemetry.TELEMETRY.close()
+    launches, plain_calls = launch_counts(pa)
+    d = dict(captures=p0.captures - before["captures"], eager=p0.eager_runs - before["eager"],
+             replays=p0.replays - before["replays"],
+             dispatches=eng.dispatch_count - before["dispatches"],
+             forwards=eng.forwards - before["forwards"])
+    done = [r for r in recs if r["status"] == 200]
+    rejected = sum(r["status"] == 429 for r in recs)
+    ttfts = sorted(r["token_times"][0] - r["t_send"] for r in done if r["token_times"])
+    gaps_s = [b - a for r in done for a, b in zip(r["token_times"], r["token_times"][1:])]
+    useful = sum(len(p) + len(r["tokens"]) for p, r in zip(prompts, recs) if r["status"] == 200)
+    served = metric_value(page, "inference_requests_total")
+    # the same prompts through the engine's own generate_all (counted only)
+    for i, p in enumerate(prompts):
+        eng.put(("own", i), p, max_new_tokens=max_new)
+    own = eng.generate_all()
+    same = sum(r["tokens"] == own[("own", i)] for i, r in enumerate(recs) if r["status"] == 200)
+    leaked = eng.allocator.free_blocks != eng.cfg.num_blocks - 1
+    with open(jsonl) as f:
+        jsonl_records = sum(1 for _ in f)
+    os.remove(jsonl)
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+    emit("serving", model="llama3_8b", dtype="bfloat16", source="bench.py:1127-1357",
+         stack="HTTP frontend -> router -> EngineLoop -> ragged engine (engine_fused's)",
+         requests=n_req, new_tokens_each=max_new, arrival_rate_per_s=rate,
+         completed=len(done), rejected_429=rejected, wall_s=wall,
+         ttft_p50_s=pct(ttfts, 0.5), ttft_p99_s=pct(ttfts, 0.99),
+         decode_latency_mean_s=sum(gaps_s) / len(gaps_s) if gaps_s else None,
+         goodput_tokens_per_s=useful / wall, dispatches=d["dispatches"], forwards=d["forwards"],
+         graph_replays=d["replays"], graph_captures=d["captures"], eager_runs=d["eager"],
+         kernel_launches=launches, plain_version_calls=plain_calls,
+         metrics_inference_requests_total=served, healthz=health.get("status"),
+         drained=drained, leaked=leaked, telemetry_jsonl_records=jsonl_records,
+         streams_equal_to_generate_all=same, streams_compared=len(done),
+         nvidia_smi=nvidia_smi("name", "power.limit"), **power)
+    bad = [i for i, r in enumerate(recs) if r["status"] == 200 and (
+        len(r["tokens"]) != max_new or r.get("finish") != "length"
+        or any(not 0 <= t < vocab for t in r["tokens"]))]
+    if bad or any(r["status"] not in (200, 429) for r in recs) or not done:
+        raise AssertionError(f"serving: requests {bad} (or a non-200/429 status) failed")
+    if d["captures"] or d["eager"] or d["replays"] != d["dispatches"]:
+        raise AssertionError(f"serving: {d['captures']} captures and {d['eager']} eager runs; "
+                             f"{d['replays']} replays of {d['dispatches']} dispatches")
+    if min(launches.values()) <= 0 or plain_calls:
+        raise AssertionError(f"serving: kernel launches {launches}, plain calls {plain_calls}")
+    if health.get("status") != "ready":
+        raise AssertionError(f"serving: /healthz said {health.get('status')} before the drain")
+    if served != len(done):
+        raise AssertionError(f"serving: /metrics counted {served} requests, {len(done)} done")
+    if not drained or leaked:
+        raise AssertionError(f"serving: drained {drained}, blocks leaked {leaked}")
+    return launches
+
+
+def parity_requests(np, vocab, n=PARITY_REQ):
+    """The first n prompts of the serving workload, half greedy and half
+    seeded: (uid, prompt, sampling controls)."""
+    out = []
+    for i, p in enumerate(requests(np, vocab)[:n]):
+        kw = {} if i % 2 == 0 else dict(temperature=0.8, top_k=20, seed=1000 + i)
+        out.append((f"p{i}", p.tolist(), kw))
+    return out
+
+
+def host_tokens(ragged, spec, params, reqs, max_new) -> dict:
+    """The host-staged engine's tokens (fp32): the fp32 phases' reference."""
+    import torch
+
+    host = ragged.RaggedInferenceEngine(spec, ragged.RaggedConfig(**ENGINE, device_state=False),
+                                        dtype=torch.float32, params=params)
+    for uid, p, kw in reqs:
+        host.put(uid, p, max_new_tokens=max_new, **kw)
+    out = host.generate_all()
+    del host
+    return out
+
+
+def fused32_engine(torch, ragged, spec, params):
+    """The bench's fused config in fp32 with the prefix cache on, warmed for
+    greedy and for seeded top-k batches."""
+    eng = ragged.RaggedInferenceEngine(
+        spec, ragged.RaggedConfig(**ENGINE, **FUSED, enable_prefix_cache=True),
+        dtype=torch.float32, params=params)
+    eng.warmup()
+    eng.warmup(sampled=True, has_tk=True)
+    return eng
+
+
+def serving_parity_phase(torch, np, llama, ragged, params32):
+    """fp32, 2 layers at full width: the fused engine run directly twice,
+    telemetry off then on, with ``reset_state()`` between (same tokens,
+    dispatches, readbacks and synchronize calls; the tensors the graphs
+    hold unmoved), then 16 requests (half seeded) through HTTP: the tokens
+    equal the host-staged engine's, and a client traceparent comes back
+    with the request's engine spans under it in /debug/trace. Returns the
+    engine and the host-staged reference."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.inference.kvquant import kv_leaves
+    from deepspeed_tpu_torch.serving import RouterConfig, build_server
+
+    cfg, params = params32
+    spec = llama.build(cfg)
+    reqs = parity_requests(np, cfg.vocab_size)
+    ref = host_tokens(ragged, spec, params, reqs, MAX_NEW)
+    eng = fused32_engine(torch, ragged, spec, params)
+
+    def pointers():
+        ts = [x for name in ("k", "v") for x in kv_leaves(eng.cache[name])]
+        ts += [*eng._dev_state, eng._bt_dev, eng._slot_toks]
+        return [t.data_ptr() for t in ts]
+
+    runs = []
+    ptr0 = pointers()
+    for on in (False, True):
+        telemetry.TELEMETRY.reset()
+        if on:
+            telemetry.configure(enabled=True, tracing=True, slo=True)
+        disp0, replays0 = eng.dispatch_count, eng.programs.replays
+        with SyncCounter(torch) as sc:
+            for uid, p, kw in reqs:
+                eng.put(uid, p, max_new_tokens=MAX_NEW, **kw)
+            out = eng.generate_all()
+        runs.append(dict(tokens={u: out[u] for u, _, _ in reqs},
+                         dispatches=eng.dispatch_count - disp0,
+                         replays=eng.programs.replays - replays0, readbacks=sc.waits,
+                         synchronize_calls=sc.syncs))
+        eng.reset_state()  # the next run starts cold: no prefix hits
+    telemetry.TELEMETRY.reset()
+    in_place = pointers() == ptr0
+    counts_equal = {k: runs[0][k] == runs[1][k] for k in runs[0]}
+
+    telemetry.configure(enabled=True, tracing=True)
+    captures0 = eng.programs.captures
+    # the loop starts once every request waits in its inbox, whose
+    # priorities (i - 8) are the put order of the reference's run: the
+    # batches are then those of the direct runs, whatever the HTTP threads'
+    # order (a different batch composition may round an fp32 near-tie
+    # otherwise)
+    fe, router, loops = build_server([eng], start=False,
+                                     router_cfg=RouterConfig(max_queue_tokens=1 << 20))
+    fe.start()
+
+    def start_when_queued():
+        for _ in range(6000):
+            if loops[0].stats().queued >= len(reqs):
+                break
+            time.sleep(0.005)
+        loops[0].start()
+
+    import threading
+
+    starter = threading.Thread(target=start_when_queued, daemon=True)
+    starter.start()
+    try:
+        recs = concurrent(lambda r: completion(
+            fe, {"prompt": r[1], "max_tokens": MAX_NEW, "stream": r[0][-1] in "13579",
+                 "priority": int(r[0][1:]) - 8, **r[2]},
+            headers={"traceparent": SERVING_TRACEPARENT} if r[0] == "p0" else None), reqs)
+        starter.join()
+        trace_id = SERVING_TRACEPARENT.split("-")[1]
+        _, _, raw = http_json(fe.host, fe.port, "GET", f"/debug/trace?trace_id={trace_id}")
+        names = [e["name"] for e in json.loads(raw)["traceEvents"]]
+    finally:
+        drained = fe.drain(timeout=120)
+        telemetry.TELEMETRY.reset()
+    got = {uid: r.get("tokens") for (uid, _, _), r in zip(reqs, recs)}
+    echoed = (recs[0].get("traceparent") or "").split("-")[1:2] == [trace_id]
+    emit("serving_parity", model="llama3_8b widths, 2 layers", dtype="float32",
+         requests=len(reqs), seeded=sum(bool(kw) for _, _, kw in reqs),
+         http_tokens_equal_host_staged=got == ref,
+         http_streams_differing=sorted(u for u in ref if got.get(u) != ref[u]),
+         direct_tokens_equal_host_staged=[r["tokens"] == ref for r in runs],
+         telemetry_off=runs[0] | {"tokens": None}, telemetry_on=runs[1] | {"tokens": None},
+         counts_equal_with_telemetry_on=counts_equal,
+         reset_state_in_place=in_place, traceparent_echoed=echoed,
+         trace_span_names=sorted(set(names)), engine_request_spans=names.count("engine/request"),
+         captures_while_serving=eng.programs.captures - captures0, drained=drained,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if got != ref or any(r["tokens"] != ref for r in runs):
+        raise AssertionError("serving_parity: tokens differ from the host-staged engine's")
+    if not all(counts_equal.values()):
+        raise AssertionError(f"serving_parity: telemetry changed the device work: {runs}")
+    if not in_place:
+        raise AssertionError("serving_parity: reset_state() moved a graph-held tensor")
+    if not echoed or names.count("engine/request") != 1 or "http/request" not in names:
+        raise AssertionError(f"serving_parity: trace not propagated: {sorted(set(names))}")
+    if not drained or eng.programs.captures != captures0:
+        raise AssertionError("serving_parity: captures while serving, or no clean drain")
+    return eng, ref
+
+
+def serving_cluster_phase(torch, np, llama, ragged, params32, prefill):
+    """fp32, 2 layers at full width: ``build_cluster_server`` over the
+    parity engine (prefill) and a second engine sharing its weights
+    (decode); 8 requests on two shared 64-token prefixes, greedy and seeded,
+    every one handed off; tokens equal one (host-staged) engine's, the
+    cluster prefix index hits, the drain runs begin_drain -> join -> close.
+    Returns the decode engine."""
+    from deepspeed_tpu_torch.serving import build_cluster_server
+
+    cfg, params = params32
+    spec = llama.build(cfg)
+    rng = np.random.default_rng(5)
+    prefixes = [rng.integers(0, cfg.vocab_size, CLUSTER_PREFIX).tolist() for _ in range(2)]
+    reqs = [(f"c{i}", prefixes[i % 2] + rng.integers(0, cfg.vocab_size, 16 + 8 * i).tolist(),
+             {} if i % 4 < 2 else dict(temperature=0.8, top_k=20, seed=2000 + i))
+            for i in range(8)]
+    ref = host_tokens(ragged, spec, params, reqs, MAX_NEW)
+    decode = fused32_engine(torch, ragged, spec, params)
+    fe, cluster, loops = build_cluster_server([prefill], [decode])
+    order = []
+    try:
+        one = lambda r: completion(fe, {"prompt": r[1], "max_tokens": MAX_NEW,  # noqa: E731
+                                        "stream": r[0][-1] in "1357", **r[2]})
+        recs = [one(r) for r in reqs[:2]]  # one a prefix first: the index learns both
+        recs += concurrent(one, reqs[2:])
+        for _ in range(500):
+            st = cluster.cluster_stats()
+            if st["handoffs"]["ok"] + st["handoffs"]["failed"] >= len(reqs):
+                break
+            time.sleep(0.01)
+    finally:
+        cluster.begin_drain()
+        order.append("begin_drain")
+        joined = all(lp.join(timeout=120) for lp in loops)
+        order.append("join")
+        fe.close()
+        order.append("close")
+    got = {uid: r.get("tokens") for (uid, _, _), r in zip(reqs, recs)}
+    clean = all(e.allocator.free_blocks == e.cfg.num_blocks - 1 and not e.has_work
+                for e in (prefill, decode))
+    emit("serving_cluster", model="llama3_8b widths, 2 layers", dtype="float32",
+         requests=len(reqs), prefix_tokens=CLUSTER_PREFIX, tokens_equal_one_engine=got == ref,
+         handoffs=st["handoffs"], prefix_index=st["prefix_index"], fallbacks=st["fallbacks"],
+         kv_transfer=st["kv_transfer"], drain_order=order, joined=joined, clean=clean,
+         kv_blocks_exported=prefill.kv_blocks_exported,
+         kv_blocks_imported=decode.kv_blocks_imported,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if got != ref:
+        raise AssertionError("serving_cluster: disaggregated tokens differ from one engine's")
+    if st["handoffs"]["ok"] != len(reqs) or st["handoffs"]["failed"] or st["fallbacks"]:
+        raise AssertionError(f"serving_cluster: handoffs {st['handoffs']}, "
+                             f"fallbacks {st['fallbacks']}")
+    if st["prefix_index"]["hits"] <= 0:
+        raise AssertionError(f"serving_cluster: no prefix-index hit: {st['prefix_index']}")
+    if not joined or not clean:
+        raise AssertionError(f"serving_cluster: joined {joined}, clean {clean}")
+    return decode
+
+
+def serving_chaos_phase(torch, np, llama, ragged, params32):
+    """``bench.py:_chaos_bench_impl`` on the card, fp32, 2 layers at full
+    width: its fault schedule on its engine (``CHAOS_ENGINE``: fused chunks
+    on device-resident state, warmed), 8 seeded requests of 8 tokens
+    arriving 0.05 s apart through HTTP, against the same engine's
+    fault-free run; the bench's ``checks`` dict, every entry true."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.serving import RouterConfig, build_server, faults
+
+    cfg, params = params32
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),), dtype=np.int32).tolist()
+               for n in rng.integers(4, 20, CHAOS_REQ)]
+    reqs = [(f"x{i}", p, dict(temperature=0.8, seed=1000 + i)) for i, p in enumerate(prompts)]
+    spec = llama.build(cfg)
+
+    def make_engine():
+        return ragged.RaggedInferenceEngine(spec, ragged.RaggedConfig(**CHAOS_ENGINE),
+                                            dtype=torch.float32, params=params)
+
+    ref_eng = make_engine()  # the fault-free reference first, as the bench
+    for uid, p, kw in reqs:
+        ref_eng.put(uid, p, max_new_tokens=CHAOS_NEW, **kw)
+    ref = ref_eng.generate_all()
+    del ref_eng
+    eng = make_engine()
+    eng.warmup(sampled=True)  # the seeded batches' programs (no top-k)
+    telemetry.configure(enabled=True)
+    captures0 = eng.programs.captures
+    fe, router, loops = build_server([eng], router_cfg=RouterConfig())
+    inj = faults.get_fault_injector().configure(CHAOS_SCHEDULE, seed=0)
+    try:
+        recs = concurrent(lambda r: completion(fe, {"prompt": r[1], "max_tokens": CHAOS_NEW,
+                                                    **r[2]}), reqs, stagger_s=0.05)
+        _, _, raw = http_json(fe.host, fe.port, "GET", "/healthz")
+        healthz = json.loads(raw)
+        _, _, page = http_json(fe.host, fe.port, "GET", "/metrics")
+        page = page.decode()
+    finally:
+        fired = inj.counts()
+        inj.reset()
+        drained = fe.drain(timeout=120)
+        telemetry.TELEMETRY.reset()
+    leaked = (eng.cfg.num_blocks - 1) - eng.allocator.free_blocks
+    completed = [i for i, r in enumerate(recs) if r["status"] == 200]
+    mismatches = [i for i in completed if recs[i]["tokens"] != ref[reqs[i][0]]]
+    metric_degraded = any(line.split()[-1] not in ("0", "0.0") for line in page.splitlines()
+                          if line.startswith(("degraded_mode", "replica_degraded_mode")))
+    checks = {
+        "no_hung_requests": all(r is not None for r in recs),
+        "no_leaked_blocks": leaked == 0,
+        "drained_clean": bool(drained),
+        "all_responses_terminal": len(recs) == CHAOS_REQ,
+        "parity_with_fault_free_run": not mismatches and bool(completed),
+        "auto_degraded": eng.degraded_mode >= 1,
+        "healthz_degraded": healthz.get("status") == "degraded",
+        "metrics_degraded": metric_degraded,
+    }
+    emit("serving_chaos", model="llama3_8b widths, 2 layers", dtype="float32",
+         source="bench.py:2171-2339", schedule=CHAOS_SCHEDULE, checks=checks,
+         completed=len(completed), failed=len(recs) - len(completed),
+         parity_mismatches=len(mismatches), degraded_mode=eng.degraded_mode,
+         degraded_reason=eng.degraded_reason, step_retries=eng.step_retries,
+         step_failures=eng.step_failures, loop_crashes=loops[0].crash_count,
+         loop_respawns=loops[0].respawn_count, faults_fired=fired,
+         captures_on_loop_thread=eng.programs.captures - captures0,
+         healthz=healthz.get("status"), nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not all(checks.values()):
+        raise AssertionError(f"serving_chaos: checks failed: "
+                             f"{sorted(k for k, v in checks.items() if not v)}")
+
+
 def main() -> int:
     import torch
 
@@ -3276,6 +3817,14 @@ def main() -> int:
     params32 = (cfg2, llama.init_params(cfg2, torch.Generator(device="cuda").manual_seed(1),
                                         torch.float32, "cuda"))
     serve_trial_phase(torch, np, llama, dense_mod, fused_eng, params32)
+    # 5g'. the HTTP serving tier: engine_fused's engine behind the frontend
+    # under bench.py's open-loop client, then its fp32 parity, disaggregated
+    # cluster and chaos checks on 2 layers at full width
+    serving_launches = serving_phase(torch, np, pa, fused_eng)
+    parity_eng, _ = serving_parity_phase(torch, np, llama, ragged, params32)
+    decode_eng = serving_cluster_phase(torch, np, llama, ragged, params32, parity_eng)
+    del parity_eng, decode_eng
+    serving_chaos_phase(torch, np, llama, ragged, params32)
     del fused_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3326,6 +3875,7 @@ def main() -> int:
                             launches_handoff=handoff_launches.get(name),
                             launches_kv_quant_int8=kvq_launches.get(name),
                             launches_woq=woq_launches.get(name),
+                            launches_serving=serving_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

@@ -45,6 +45,12 @@ nodes itself from the graphs torch captured.)
 engine's ``warmup()``, the counterpart of the JAX engine's ahead-of-time
 compiles), so a key's first dispatch already replays.
 
+``ProgramCache.mode`` is the engine's dispatch mode (the configuration
+fields its programs' code depends on beyond the key: the degradation ladder
+changes them). Each mode has its own graphs (``_graphs`` is the current
+mode's), so a graph captured in one mode never replays in another.
+``_seen`` holds the keys that ran, in any mode.
+
 The kernel wrappers count their launches in Python, which in a graph runs
 once, at capture, and launches nothing. The cache takes each graph's counts
 (the counters' change while it captured), puts the counters back, and adds
@@ -149,14 +155,25 @@ class ProgramCache:
         self.device = torch.device(device)
         self.on_card = self.device.type == "cuda"
         self._seen: set = set()
-        # key -> (graph, static output, counts a replay adds, counts an iteration adds)
-        self._graphs: dict = {}
+        # per mode: (keys that ran, key -> (graph, static output, counts a
+        # replay adds, counts an iteration adds))
+        self._modes: dict = {}
+        self.mode = None
         self._pool = torch.cuda.graph_pool_handle() if self.on_card else None
         self._stream = torch.cuda.Stream(self.device) if self.on_card else None
         self.eager_runs = 0
         self.captures = 0
         self.replays = 0
         self.replayed = [0] * len(COUNTERS)  # what replays added to each counter
+
+    @property
+    def mode(self):
+        return self._mode
+
+    @mode.setter
+    def mode(self, mode) -> None:
+        self._mode = mode
+        self._ran, self._graphs = self._modes.setdefault(mode, (set(), {}))
 
     @property
     def graphs(self) -> int:
@@ -181,17 +198,17 @@ class ProgramCache:
         """``run``'s first call of ``key`` (eager, then on the card the
         capture), made ahead of the key's first dispatch; nothing if the key
         ran before."""
-        if key not in self._seen:
+        if key not in self._ran:
             self._run(key, fn, True)
 
     def _run(self, key, fn, capture: bool):
+        self._seen.add(key)
+        self._ran.add(key)
         if not (self.on_card and capture):
-            self._seen.add(key)
             self.eager_runs += 1
             return fn(), None
         entry = self._graphs.get(key)
         if entry is None:
-            self._seen.add(key)
             self.eager_runs += 1
             if isinstance(fn, LoopProgram):
                 out = self._on_side_stream(lambda: fn(warm=True))

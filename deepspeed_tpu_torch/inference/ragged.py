@@ -78,13 +78,31 @@ carry its payloads and codec, and an import under another codec raises
 (``ops/quantizer.py``), dequantized a layer at a time. Every dispatch mode
 and every captured program runs either.
 
-Headroom admission, telemetry and fault injection are not ported yet
-(``ROADMAP.md``).
+Telemetry (``deepspeed_tpu_torch/telemetry``): with the bus enabled every
+request emits its lifecycle span, the engine counts and histograms its
+dispatches, transfers and prefix and tier traffic, and ``step()`` samples
+scheduler gauges; with the tracer on, a request carries its span tree
+(``put(trace=)``: queue, admission, dispatch, readback). Every emit reads
+host counters and clocks only, so telemetry adds no device synchronisation.
+Fault injection (``serving/faults.py``) fires on the host at the allocation,
+upload, dispatch and readback seams, before a program is launched or
+replayed, never inside a captured graph. ``step()`` runs under a dispatch
+watchdog: a transient failure re-anchors the device state on the host's
+tokens (``_recover_device_path``: in place, since the graphs hold the
+tensors' pointers) and retries with backoff; repeated failures walk the
+degradation ladder (device-resident state off, then fused chunks, run-ahead
+and tiles off; every rung gives the same tokens); ``reset_state()`` fails
+every request and zeroes the pool and the device state in place (crash
+containment of ``serving/engine_loop.py``). Headroom admission is not ported
+(ROADMAP.md queue 1 item 14).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import pickle
+import random
 import time
 from dataclasses import dataclass, field, fields
 from typing import Any
@@ -104,11 +122,28 @@ from deepspeed_tpu_torch.inference.sampling import (accept_drafts, per_request_k
 from deepspeed_tpu_torch.models.api import ModelSpec
 from deepspeed_tpu_torch.models.paged import speculative_lane_layout
 from deepspeed_tpu_torch.ops.quantizer import QuantizedWeight, quantize_params
+from deepspeed_tpu_torch.serving.faults import (POINT_ALLOC, POINT_DISPATCH, POINT_H2D,
+                                                POINT_READBACK, classify_transient,
+                                                get_fault_injector, is_resource_exhausted)
+from deepspeed_tpu_torch.telemetry import get_telemetry
+from deepspeed_tpu_torch.telemetry.tracing import format_traceparent
 from deepspeed_tpu_torch.utils import prng
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 # the fixed root of every request's sampling keys (the JAX engine's)
 SAMPLE_ROOT = 0x5A3D1E
+
+
+def _on_engine_device(fn):
+    """Run an engine method on the engine's device and stream
+    (``RaggedInferenceEngine._on_device``)."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._on_device():
+            return fn(self, *args, **kwargs)
+
+    return wrapper
 
 
 class BlockedAllocator:
@@ -318,6 +353,22 @@ class RaggedConfig:
     spec_draft: int = 0
     # suffix length the prompt-lookup draft matches
     spec_ngram: int = 3
+    # ---- dispatch watchdog ----
+    # wall-clock budget for one step(); a step past it counts toward the
+    # degradation ladder like a transient failure. 0 disables the check.
+    step_deadline_s: float = 0.0
+    # transient step failures retried in place (with backoff) before the
+    # error escalates out of step(); fatal errors never retry
+    dispatch_retries: int = 2
+    retry_backoff_s: float = 0.05
+    retry_backoff_max_s: float = 2.0
+    # multiplicative jitter on each backoff sleep, drawn from an
+    # engine-seeded RNG so a replayed run backs off identically
+    retry_jitter: float = 0.25
+    # consecutive failures that walk one rung down the degradation ladder:
+    # device-resident state -> host-staged -> plain steps (the same tokens
+    # on every rung). 0 disables degradation.
+    degrade_after: int = 3
     # block-level prefix caching: retired sequences publish their full prompt
     # blocks into a hash-chained index; admission splices the longest cached
     # full-block prefix (refcounts bumped) and prefills only the tail. Cached
@@ -397,6 +448,19 @@ class _SeqState:
     # the cached-prefix tokens a router credited at placement: admission
     # counts a splice that comes up short (prefix_stale_probes)
     expected_cached: int = 0
+    # request-lifecycle telemetry (perf_counter stamps; 0.0: not recorded):
+    # enqueue -> admit is queue wait, enqueue -> first token is TTFT
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_last_token: float = 0.0
+    # the request's "engine/request" span context (telemetry.tracing):
+    # non-None only while the tracer is on and the request was sampled
+    trace: Any = None
+    # billing identity (carried for the cost meter, ROADMAP.md queue 1 item
+    # 14) and the SLO class its latencies are scored under
+    tenant: str = "default"
+    sla_class: str = "interactive"
 
     def token_at(self, p: int) -> int:
         if p < len(self.prompt):
@@ -781,6 +845,36 @@ class RaggedInferenceEngine:
         self._handoffs: dict[Any, _SeqState] = {}
         self.kv_blocks_exported = 0
         self.kv_blocks_imported = 0
+        # the cluster prefix index's allocator listener: reinstalled by
+        # reset_state, which tells it to forget this engine's keys
+        self._prefix_listener = None
+        # ---- telemetry: the process bus and its tracer (stable objects;
+        # only their enabled flags toggle, so the hot paths read one flag).
+        # The *_seen marks turn cumulative counts into counter increments.
+        self.telemetry = get_telemetry()
+        self._tracer = self.telemetry.tracer
+        self._h2d_seen = 0
+        self._evictions_seen = 0
+        self._kvtier_seen: dict = {}
+        self._kvquant_saved_seen = 0
+        self._kvq_blocks_allocated = 0  # allocated_total of allocators reset away
+        # program observability: dispatches whose program key ran before
+        # (warm) or not (cold: a first run at serve time); warmup() zeroes
+        # both, so the coverage gauge reads serving traffic only
+        self.program_dispatches = 0
+        self.program_cold_dispatches = 0
+        self._program_keys: set = set()
+        # ---- dispatch watchdog: degraded_mode 0 is the configured path,
+        # 1 host-staged (device_state off), 2 plain steps (fused, run-ahead
+        # and tiles off); every rung gives the same tokens
+        self._faults = get_fault_injector()
+        self._retry_rng = random.Random(self._engine_seed ^ 0x5EED)
+        self.degraded_mode = 0
+        self.degraded_reason: str | None = None
+        self.step_failures = 0   # transient step failures observed
+        self.step_retries = 0    # in-place retries the watchdog issued
+        self._consec_failures = 0
+        self.programs.mode = self._program_mode()
         log_dist(
             f"RaggedInferenceEngine: model={self.spec.name} device={self.device} "
             f"budget={self.cfg.max_tokens_per_step} max_seqs={self.cfg.max_seqs} "
@@ -804,7 +898,8 @@ class RaggedInferenceEngine:
             eos_token_id: int | None = None, temperature: float = 0.0,
             top_k: int = 0, top_p: float = 1.0, deadline_s: float | None = None,
             seed: int | None = None, handoff: bool = False,
-            expected_cached_tokens: int = 0) -> None:
+            expected_cached_tokens: int = 0, trace=None, tenant: str = "default",
+            sla_class: str = "interactive") -> None:
         """Enqueue a request. Admission into the running batch happens inside
         ``step()`` as slots/budget free up. ``temperature`` / ``top_k`` /
         ``top_p`` select per-request sampling (0 temperature: greedy),
@@ -819,7 +914,12 @@ class RaggedInferenceEngine:
         blocks for ``export_handoff`` (the record carries the full
         ``max_new_tokens``). ``expected_cached_tokens``: the prefix a router
         credited at placement; a shorter splice at admission is counted in
-        ``prefix_stale_probes``."""
+        ``prefix_stale_probes``. ``trace``: a serving-side trace context
+        (``telemetry.tracing.TraceContext``) the request's engine spans
+        parent under; with the tracer on and no context, the engine
+        head-samples a fresh trace. ``sla_class`` scores the request's
+        latencies against that class's SLO objectives; ``tenant`` is carried
+        for the cost meter (ROADMAP.md queue 1 item 14)."""
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -849,6 +949,12 @@ class RaggedInferenceEngine:
         self._put_counter += 1
         # re-putting a retired uid supersedes its old record
         self._results.pop(uid, None)
+        trace_ctx = None
+        if self._tracer.enabled:
+            # the request's umbrella "engine/request" span: a child of the
+            # serving root, or a fresh head-sampled root; recorded at release
+            trace_ctx = (self._tracer.begin(trace) if trace is not None
+                         else self._tracer.extract(None))
         self._queued.append(_SeqState(
             uid=uid, prompt=prompt, max_new_tokens=eff_new,
             eos_token_id=eos_token_id if eos_token_id is not None else self.eos_token_id,
@@ -856,7 +962,11 @@ class RaggedInferenceEngine:
             temperature=float(temperature), top_k=int(top_k), top_p=float(top_p),
             seed=eff_seed, handoff=bool(handoff), handoff_budget=int(max_new_tokens),
             expected_cached=max(0, int(expected_cached_tokens)),
+            t_enqueue=time.perf_counter() if self.telemetry.enabled else 0.0,
+            trace=trace_ctx, tenant=str(tenant), sla_class=str(sla_class),
         ))
+        if self.telemetry.enabled:
+            self.telemetry.counter("inference_requests_queued_total", "requests accepted").inc()
 
     @property
     def has_work(self) -> bool:
@@ -913,6 +1023,8 @@ class RaggedInferenceEngine:
             self._queued = [s for s in self._queued if s.status == "finished"]
             for seq in aborted:
                 self._results[seq.uid] = seq
+                if self.telemetry.enabled:
+                    self._emit_request_span(seq)
         for seq in list(self._running.values()):
             if seq.status != "finished" and seq.refs == 0:
                 self._release(seq)
@@ -972,7 +1084,10 @@ class RaggedInferenceEngine:
     def set_prefix_listener(self, listener) -> None:
         """Attach a publish/evict listener (a cluster prefix index: an object
         with ``on_publish(key)``, ``on_evict(key)`` and optionally
-        ``on_demote(key)``) to the allocator."""
+        ``on_demote(key)``) to the allocator. It survives ``reset_state``,
+        which calls its ``on_reset()`` so the index drops this engine's
+        keys."""
+        self._prefix_listener = listener
         self.allocator.listener = listener
 
     def kv_bytes_per_token(self) -> int:
@@ -997,7 +1112,7 @@ class RaggedInferenceEngine:
         if self._kvq is None:
             return None
         bb = self._block_bytes()
-        allocated = self.allocator.allocated_total
+        allocated = self._kvq_blocks_allocated + self.allocator.allocated_total
         return {
             "codec": self._kvq_name,
             "block_bytes": bb,
@@ -1048,6 +1163,7 @@ class RaggedInferenceEngine:
         for name in ("k", "v"):
             copy_into(self.cache[name], 1, idx_d, payload[name])
 
+    @_on_engine_device
     def export_handoff(self, uid) -> KVHandoff | None:
         """Turn a finished prefill-stage request (``put(handoff=True)``)
         into a ``KVHandoff`` record, then retire its blocks here (publishing
@@ -1073,9 +1189,18 @@ class RaggedInferenceEngine:
                                   if seq.deadline else 0.0),
             block_payload=payload,
             row_iv=np.asarray([tok, pos, seq.seed, len(seq.prompt), seq.top_k], np.int32),
-            row_fv=np.asarray([seq.temperature, seq.top_p], np.float32), codec=self._kvq_name)
+            row_fv=np.asarray([seq.temperature, seq.top_p], np.float32), codec=self._kvq_name,
+            traceparent=format_traceparent(seq.trace) if seq.trace is not None else None,
+            tenant=seq.tenant, sla_class=seq.sla_class)
         self._retire_parked(seq)
+        self._count_transfer(n_ctx, "export")
         return rec
+
+    def _count_transfer(self, n: int, direction: str) -> None:
+        if n and self.telemetry.enabled:
+            self.telemetry.counter(
+                "kv_transfer_blocks_total", "KV blocks moved by handoff/prefix transfers",
+            ).inc(n, direction=direction)
 
     def discard_handoff(self, uid) -> bool:
         """Release a parked handoff without exporting it."""
@@ -1090,7 +1215,9 @@ class RaggedInferenceEngine:
             self._publish_prompt_blocks(seq)
         self.allocator.free(seq.blocks)
         seq.blocks = []
+        seq.trace = None
 
+    @_on_engine_device
     def import_handoff(self, h: KVHandoff) -> bool:
         """Adopt a prefill engine's handoff: allocate fresh blocks, scatter
         the payload, write the slot row from the record's snapshot and
@@ -1125,11 +1252,18 @@ class RaggedInferenceEngine:
             eos_token_id=h.eos_token_id, temperature=float(h.temperature), top_k=int(h.top_k),
             top_p=float(h.top_p), seed=int(h.seed), generated=list(h.generated), pos=pos,
             deadline=(time.perf_counter() + h.deadline_remaining_s
-                      if h.deadline_remaining_s else 0.0))
+                      if h.deadline_remaining_s else 0.0),
+            t_enqueue=time.perf_counter() if self.telemetry.enabled else 0.0,
+            tenant=str(h.tenant), sla_class=str(h.sla_class))
+        if self._tracer.enabled and h.traceparent:
+            # the decode side's spans parent under the prefill side's request
+            # span: one trace id across both engines
+            seq.trace = self._tracer.extract(h.traceparent)
         self._results.pop(h.uid, None)  # supersede a stale retired record
         blocks = self.allocator.allocate(n_ctx)
         self._scatter_blocks(blocks, h.block_payload)
         self.kv_blocks_imported += n_ctx
+        self._count_transfer(n_ctx, "import")
         seq.blocks = blocks
         if seq.finished:
             # the prefill stage already ended the request: retire it here,
@@ -1152,9 +1286,12 @@ class RaggedInferenceEngine:
         self._hist_stale[slot] = True
         return True
 
-    def export_prefix(self, prompt_tokens) -> PrefixPayload | None:
+    @_on_engine_device
+    def export_prefix(self, prompt_tokens, trace=None) -> PrefixPayload | None:
         """The longest cached full-block prefix of a prompt as a payload
-        (demoted links promoted first); None when nothing is cached."""
+        (demoted links promoted first); None when nothing is cached.
+        ``trace`` (a TraceContext) stamps the payload's ``traceparent``, so
+        the importer's span joins the requesting trace."""
         if not self.cfg.enable_prefix_cache:
             return None
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
@@ -1171,9 +1308,12 @@ class RaggedInferenceEngine:
         finally:
             self.allocator.free(hit)
         self.kv_blocks_exported += len(hit)
+        self._count_transfer(len(hit), "export")
         return PrefixPayload(tokens=prompt[:len(hit) * self.cfg.block_size],
-                             block_payload=payload, codec=self._kvq_name)
+                             block_payload=payload, codec=self._kvq_name,
+                             traceparent=format_traceparent(trace) if trace is not None else None)
 
+    @_on_engine_device
     def import_prefix(self, payload: PrefixPayload | None) -> int:
         """Install transferred prefix blocks into this engine's prefix cache
         (allocate -> scatter -> publish under the re-derived chain -> the
@@ -1184,6 +1324,7 @@ class RaggedInferenceEngine:
             return 0
         if payload.codec != self._kvq_name:
             return 0  # opportunistic: another codec's blocks are a miss
+        t_imp0 = time.perf_counter() if self._tracer.enabled and payload.traceparent else 0.0
         bs = self.cfg.block_size
         tokens = [int(t) for t in payload.tokens]
         n = min(payload.n_blocks, len(tokens) // bs)
@@ -1204,11 +1345,17 @@ class RaggedInferenceEngine:
                 alloc.publish(b, keys[i])
             alloc.free(blocks)  # refcount 0 + published -> evictable LRU
             self.kv_blocks_imported += len(blocks)
+            self._count_transfer(len(blocks), "import")
         m = 0
         for k in keys:
             if alloc.lookup(k) is None:
                 break
             m += 1
+        if t_imp0:
+            # linked to the exporting request's trace
+            self._tracer.finish(self._tracer.extract(payload.traceparent), "kv/prefix_import",
+                                t_imp0, time.perf_counter(), blocks=len(missing),
+                                tokens=m * bs)
         return m * bs
 
     # ------------------------------------ hierarchical KV tiering (kvtier.py)
@@ -1262,7 +1409,15 @@ class RaggedInferenceEngine:
         for b, (key, _, _) in zip(blocks, cand):
             alloc.publish(b, key)
         alloc.free(blocks)  # refcount 0 + published -> evictable LRU (MRU)
-        store.note_restored([t for _, _, t in cand], time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        tiers = [t for _, _, t in cand]
+        store.note_restored(tiers, dt)
+        if self.telemetry.enabled:
+            self.telemetry.histogram(
+                "kvtier_restore_seconds",
+                "wall time of one tiered prefix restore (gather from tier, "
+                "scatter to HBM, publish)",
+            ).observe(dt, tier="disk" if 2 in tiers else "host")
         return len(cand)
 
     def _tier_admit(self, seq: _SeqState) -> None:
@@ -1307,6 +1462,8 @@ class RaggedInferenceEngine:
             return False
         if len(seq.blocks) + need > self.cfg.max_blocks_per_seq:
             return False
+        if self._faults.enabled:
+            self._faults.fire(POINT_ALLOC, request_id=str(seq.uid))
         new = self.allocator.allocate(need)
         start = len(seq.blocks)
         seq.blocks.extend(new)
@@ -1332,6 +1489,8 @@ class RaggedInferenceEngine:
             seq.slot = -1
             self._handoffs[seq.uid] = seq
             self._results[seq.uid] = seq
+            if self.telemetry.enabled:
+                self._emit_request_span(seq)
             return
         if self.cfg.enable_prefix_cache:
             # publish BEFORE free: blocks whose last referent drops here go
@@ -1346,6 +1505,72 @@ class RaggedInferenceEngine:
         del self._running[seq.slot]
         seq.slot = -1
         self._results[seq.uid] = seq
+        if self.telemetry.enabled:
+            self._emit_request_span(seq)
+
+    @staticmethod
+    def _stamp_emission(seq: _SeqState, now: float) -> None:
+        if not seq.t_first_token:
+            seq.t_first_token = now
+        seq.t_last_token = now
+
+    def _emit_request_span(self, seq: _SeqState) -> None:
+        """One request-lifecycle span at completion: queue wait, TTFT, mean
+        per-token decode latency, preemptions; the request counters, the
+        latency histograms and the SLO observations; and, when traced, the
+        request's "engine/request" span, which its queue, admission,
+        dispatch and readback spans nest under."""
+        tel = self.telemetry
+        n_gen = len(seq.generated)
+        ttft = (seq.t_first_token - seq.t_enqueue
+                if seq.t_first_token and seq.t_enqueue else None)
+        queue_wait = (seq.t_admit - seq.t_enqueue
+                      if seq.t_admit and seq.t_enqueue else None)
+        # mean inter-token latency after the first token; a chunked dispatch
+        # (run-ahead, fused chunks, the scheduler) amortizes inside the mean
+        decode_latency = ((seq.t_last_token - seq.t_first_token) / (n_gen - 1)
+                          if n_gen > 1 and seq.t_first_token else None)
+        dur = (seq.t_last_token - seq.t_enqueue
+               if seq.t_last_token and seq.t_enqueue else 0.0)
+        tel.emit_span(
+            "inference/request", dur, uid=str(seq.uid), status=seq.status,
+            queue_wait_s=queue_wait, ttft_s=ttft, decode_latency_s=decode_latency,
+            prompt_tokens=len(seq.prompt), new_tokens=n_gen, preemptions=seq.preemptions)
+        if seq.status == "cancelled":
+            tel.counter("inference_requests_cancelled_total",
+                        "requests aborted via cancel()").inc()
+        elif seq.status == "timeout":
+            tel.counter("inference_requests_timeout_total",
+                        "requests expired past their deadline").inc()
+        tel.counter("inference_requests_total", "requests completed").inc()
+        tel.counter("inference_tokens_generated_total", "tokens generated").inc(n_gen)
+        if seq.preemptions:
+            tel.counter("inference_preemptions_total",
+                        "decode steps stalled on KV-pool pressure").inc(seq.preemptions)
+        if ttft is not None:
+            tel.histogram("inference_ttft_seconds", "time to first token").observe(ttft)
+            tel.observe_slo("ttft", ttft, sla_class=seq.sla_class)
+        if decode_latency is not None:
+            tel.histogram("inference_decode_latency_seconds",
+                          "mean inter-token decode latency").observe(decode_latency)
+            tel.observe_slo("decode_latency", decode_latency, sla_class=seq.sla_class)
+        if seq.trace is not None:
+            t_end = seq.t_last_token or time.perf_counter()
+            self._tracer.finish(
+                seq.trace, "engine/request", seq.t_enqueue or t_end, t_end,
+                uid=str(seq.uid), status=seq.status, prompt_tokens=len(seq.prompt),
+                new_tokens=n_gen, ttft_s=ttft, preemptions=seq.preemptions or None)
+            if not (seq.handoff and seq.status == "finished"):
+                seq.trace = None  # released: nothing records under it now
+            # a parked prefill-stage request keeps its context: export_handoff
+            # stamps it as the record's traceparent
+
+    def _trace_spans(self, t0: float, t1: float, pairs, **attrs) -> None:
+        """One child span per traced sequence over [t0, t1]; ``pairs`` is
+        ``[(seq, span name, tokens)]``, built only while the tracer is on."""
+        for seq, name, ntok in pairs:
+            if seq.trace is not None:
+                self._tracer.record(seq.trace, name, t0, t1, tokens=ntok, **attrs)
 
     def _table_view(self, max_pos: int) -> np.ndarray:
         """Slice the block table to the bucketed block count covering
@@ -1402,6 +1627,7 @@ class RaggedInferenceEngine:
         bs = self.cfg.block_size
         while self._queued and self._free_slots:
             seq = self._queued[0]
+            t_adm0 = time.perf_counter() if seq.trace is not None else 0.0
             worst = self._worst_case_blocks(seq)
             if use_cache and self._kvtier is not None:
                 self._tier_admit(seq)
@@ -1417,6 +1643,11 @@ class RaggedInferenceEngine:
             if seq.expected_cached and len(hit) * bs < seq.expected_cached:
                 # the placement-time probe promised more than admission found
                 self.prefix_stale_probes += 1
+                if self.telemetry.enabled:
+                    self.telemetry.counter(
+                        "prefix_probe_stale_total",
+                        "admissions whose placement-time prefix probe "
+                        "over-credited cached_tokens").inc()
             seq.slot = self._free_slots.pop()
             seq.reserved_remaining = worst
             self._reserved += worst
@@ -1429,12 +1660,32 @@ class RaggedInferenceEngine:
             self._running[seq.slot] = seq
             if self.cfg.device_state:
                 self._write_slot_row(seq)
+            tel = self.telemetry
             if use_cache:
                 if hit:
                     self.prefix_hits += 1
                     self.prefix_tokens_reused += seq.cached_prefix
+                    if tel.enabled:
+                        tel.counter("prefix_cache_hits_total",
+                                    "admissions with a cached prefix").inc()
+                        tel.counter("prefix_tokens_reused_total",
+                                    "prompt tokens served from cached KV blocks",
+                                    ).inc(seq.cached_prefix)
                 else:
                     self.prefix_misses += 1
+                    if tel.enabled:
+                        tel.counter("prefix_cache_misses_total",
+                                    "admissions with no cached prefix").inc()
+            if tel.enabled:
+                seq.t_admit = time.perf_counter()
+                if seq.trace is not None:
+                    # queue wait and the admission work (prefix match,
+                    # splice, reservation), children of the request span
+                    if seq.t_enqueue:
+                        self._tracer.record(seq.trace, "request/queue", seq.t_enqueue, t_adm0)
+                    self._tracer.record(seq.trace, "request/admission", t_adm0, seq.t_admit,
+                                        slot=seq.slot, blocks_reserved=seq.reserved_remaining,
+                                        cached_prefix_tokens=seq.cached_prefix or None)
 
     def _plan_prefill_tiles(self, nd: int, budget: int):
         """Pick tile-aligned prompt chunks for this step. Returns
@@ -1479,13 +1730,46 @@ class RaggedInferenceEngine:
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
         """Copy a host array to the engine's device (byte-accounted)."""
+        if self._faults.enabled:
+            self._faults.fire(POINT_H2D)
         self.h2d_bytes += arr.nbytes
         return torch.tensor(arr, device=self.device)
 
     def _note_dispatch(self, t0: float, forwards: int = 1) -> None:
-        self.host_stage_ns += int((time.perf_counter() - t0) * 1e9)
+        """Per-dispatch epilogue: host staging wall time (packing, upload
+        and launch, not device execution) into the counter and, with
+        telemetry on, the ``ragged_dispatch_host_ms`` histogram."""
+        dt = time.perf_counter() - t0
+        self.host_stage_ns += int(dt * 1e9)
         self.dispatch_count += 1
         self.forwards += forwards
+        if self.telemetry.enabled:
+            self.telemetry.histogram(
+                "ragged_dispatch_host_ms", "host-side staging time per ragged dispatch",
+                buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0),
+            ).observe(dt * 1e3)
+
+    def _note_program(self, kind: str, key) -> None:
+        """Whether a dispatch's program ran before (warm) or runs now for
+        the first time (cold: a shape outside what warmup() prepared);
+        feeds the ``ragged_warmup_coverage`` gauge and the per-family miss
+        counter."""
+        self.program_dispatches += 1
+        if key in self._program_keys:
+            return
+        self._program_keys.add(key)
+        self.program_cold_dispatches += 1
+        if self.telemetry.enabled:
+            self.telemetry.counter(
+                "ragged_program_cache_misses_total",
+                "dispatches that created a new program (shape outside the "
+                "warmed bucket ladder)").inc(kind=kind)
+
+    def _fire_dispatch(self) -> None:
+        """The dispatch seam: on the host, before a program is launched or
+        replayed (never inside a captured graph)."""
+        if self._faults.enabled:
+            self._faults.fire(POINT_DISPATCH)
 
     def _emit_tokens(self, logits, emit) -> dict:
         """Shared step epilogue: pick at the emit indices (greedy, or each
@@ -1495,6 +1779,9 @@ class RaggedInferenceEngine:
         not count them either)."""
         out: dict = {}
         if emit:
+            if self._faults.enabled:
+                self._faults.fire(POINT_READBACK)
+            t0 = time.perf_counter()
             seqs = [seq for _, seq in emit]
 
             def row(vals, dtype=torch.int32):
@@ -1507,21 +1794,370 @@ class RaggedInferenceEngine:
                              row([s.top_k for s in seqs]),
                              row([s.top_p for s in seqs], torch.float32))
             picked = pick(logits[row([i for i, _ in emit])],
-                          row([len(s.generated) for s in seqs]))
-            for seq, tok in zip(seqs, picked.tolist()):
+                          row([len(s.generated) for s in seqs])).tolist()
+            t1 = time.perf_counter()
+            self.readback_ns += int((t1 - t0) * 1e9)
+            if self._tracer.enabled:
+                self._trace_spans(t0, t1, [(s, "engine/readback", 1) for s in seqs])
+            now = t1 if self.telemetry.enabled else 0.0
+            for seq, tok in zip(seqs, picked):
                 seq.generated.append(int(tok))
                 out[seq.uid] = int(tok)
                 self.tokens_emitted += 1
+                if now:
+                    self._stamp_emission(seq, now)
                 if seq.finished:
                     self._release(seq)
         return out
 
     # ------------------------------------------------------------------ step
+    def _on_device(self):
+        """The engine's own device and stream, whatever the calling thread's
+        current ones are (the serving loop's thread is not the one that
+        built the engine, and torch keeps both per thread): the device's
+        default stream, which every program, upload and readback of the
+        engine is ordered on."""
+        if not self._on_card:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(torch.cuda.default_stream(self.device)))
+        return stack
+
+    @_on_engine_device
     def step(self) -> dict:
         """One SplitFuse step. Returns {uid: token} for sequences that emitted
-        a token this step."""
+        a token this step. Runs under the dispatch watchdog
+        (``_step_watched``): transient failures are retried, and degraded,
+        in place, so callers see only fatal errors."""
         if not self.has_work:
             return {}
+        out = self._step_watched()
+        if self.telemetry.enabled:
+            self._sample_step_telemetry()
+        return out
+
+    # ------------------------------------------------- dispatch watchdog
+    def _program_mode(self) -> tuple:
+        """The configuration fields a program's code depends on beyond its
+        key, which the degradation ladder changes: the program cache keys
+        its graphs on them too, so no graph of another mode replays."""
+        cfg = self.cfg
+        return (cfg.device_state, cfg.fused_chunk, cfg.decode_run_ahead, self._use_tiles)
+
+    @_on_engine_device
+    def _recover_device_path(self) -> None:
+        """Re-anchor the engine on the host's tokens after a failed step:
+        discard every unread dispatch (pending readbacks and fused chunks in
+        flight) and rewind each running sequence's position to what its
+        ``generated`` list proves was delivered. Re-running the discarded
+        positions rewrites the same KV and, as token g of a request samples
+        from a key of (seed, g) alone, picks the same tokens.
+
+        Unlike the JAX engine's functional state, the dispatches already
+        launched (up to ``pipeline_depth`` fused chunks) have advanced the
+        graph-held slot rows in place, and may still be running. So the
+        slot rows, the block table and the draft history are rewritten here
+        from the host, with ``copy_`` into the same tensors (their pointers
+        are what the captured graphs read), in stream order after those
+        dispatches; clearing the host queues alone would leave the device
+        rows ahead of the host."""
+        self._pending.clear()
+        self._inflight_chunks.clear()
+        for entry in self._staging.values():
+            entry[0] = None  # re-upload the next dispatch's bytes
+        self._slot_feed[:] = False
+        self._last_batch = None
+        for seq in self._running.values():
+            seq.refs = 0
+            g = len(seq.generated)
+            if g:
+                # feeding token_at(pos) at pos picks generated token
+                # pos - len(prompt) + 1; every position before it has its KV
+                seq.pos = len(seq.prompt) + g - 1
+            else:
+                # no token yet: redo the whole uncached prompt. (The JAX
+                # engine re-runs only the last prompt position once the
+                # prompt was scheduled, which loses the KV of a prompt chunk
+                # whose dispatch was the one that failed.)
+                seq.pos = seq.cached_prefix
+        self._bt_dirty.clear()
+        self._bt_dev.copy_(self._upload(self.block_tables))
+        self._hist_stale[:] = True
+        self._sched_wait = False
+        if self.cfg.device_state:
+            for seq in self._running.values():
+                self._write_slot_row(seq)
+        # a release deferred on refs in flight would otherwise never happen
+        for seq in list(self._running.values()):
+            if seq.finished:
+                self._release(seq)
+
+    def _maybe_degrade(self, exc: Exception) -> bool:
+        """Walk one rung down the degradation ladder once failures repeat:
+        the configured path -> host-staged (``device_state`` off) -> plain
+        steps (fused chunks, run-ahead and tiles off), by mutating ``cfg``
+        as the JAX engine does. Every rung gives the same tokens. The
+        program cache then keys on the new mode (``_program_mode``); a rung
+        that reaches a program it has not run runs it eagerly first (on the
+        card: captures it, counted in ``programs.captures``). True when a
+        rung was taken."""
+        cfg = self.cfg
+        if not cfg.degrade_after or self._consec_failures < cfg.degrade_after:
+            return False
+        reason = f"{type(exc).__name__}: {exc}"
+        if cfg.device_state:
+            cfg.device_state = False
+            self.degraded_mode = 1
+            rung = "host-staged fallback (device_state off)"
+        elif cfg.fused_chunk or cfg.decode_run_ahead or cfg.prefill_tile or self._use_tiles:
+            cfg.fused_chunk = 0
+            cfg.decode_run_ahead = 0
+            cfg.prefill_tile = 0
+            self._use_tiles = False
+            self.degraded_mode = 2
+            rung = "plain-step fallback (fused/run-ahead/tiles off)"
+        else:
+            return False  # already at the bottom rung
+        self.programs.mode = self._program_mode()
+        self.degraded_reason = reason
+        self._consec_failures = 0
+        log_dist(f"ragged watchdog: degrading to {rung} after repeated device-path "
+                 f"failures ({reason})", ranks=[0])
+        tel = self.telemetry
+        if tel.enabled:
+            tel.gauge("degraded_mode",
+                      "0 full | 1 host-staged fallback | 2 plain-step fallback",
+                      ).set(self.degraded_mode)
+            tel.event("inference/degraded", mode=self.degraded_mode, reason=reason)
+        return True
+
+    def _backoff(self, attempt: int) -> None:
+        cfg = self.cfg
+        base = min(cfg.retry_backoff_max_s, cfg.retry_backoff_s * (2 ** (attempt - 1)))
+        time.sleep(base * (1.0 + cfg.retry_jitter * self._retry_rng.random()))
+
+    def _step_watched(self) -> dict:
+        """``_step_impl`` under the dispatch watchdog: a transient failure
+        (``faults.classify_transient``; an out-of-memory error is one, and
+        hints the ladder down at once) re-anchors the device state and
+        retries in place with exponential backoff and jitter; repeated
+        failure walks the degradation ladder (each rung resets the retry
+        budget); a fatal error (any other CUDA error: it may have poisoned
+        the context) or an exhausted budget escalates to the caller (the
+        engine loop's crash containment)."""
+        cfg = self.cfg
+        attempts = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                out = self._step_impl()
+            except Exception as e:
+                oom = is_resource_exhausted(e)
+                if not oom and not classify_transient(e):
+                    raise
+                attempts += 1
+                self.step_failures += 1
+                self._consec_failures += 1
+                if self.telemetry.enabled:
+                    self.telemetry.counter(
+                        "dispatch_retries_total",
+                        "transient step failures recovered by the watchdog",
+                    ).inc(kind=type(e).__name__)
+                log_dist(f"ragged watchdog: transient step failure ({type(e).__name__}: "
+                         f"{e}); attempt {attempts}", ranks=[0])
+                if oom and cfg.degrade_after:
+                    # the same program into the same full device fails
+                    # again: shedding device-resident state frees bytes
+                    self._consec_failures = max(self._consec_failures, cfg.degrade_after)
+                self._recover_device_path()
+                if self._maybe_degrade(e):
+                    attempts = 0  # a fresh rung gets a fresh retry budget
+                    continue
+                if attempts > max(0, cfg.dispatch_retries):
+                    raise
+                self.step_retries += 1
+                self._backoff(attempts)
+                continue
+            if cfg.step_deadline_s and time.perf_counter() - t0 > cfg.step_deadline_s:
+                # the step completed but blew its budget: the work is kept,
+                # and it counts toward degradation
+                self._consec_failures += 1
+                if self.telemetry.enabled:
+                    self.telemetry.counter("dispatch_deadline_exceeded_total",
+                                           "steps exceeding cfg.step_deadline_s").inc()
+                self._maybe_degrade(TimeoutError(
+                    f"step exceeded deadline {cfg.step_deadline_s:g}s"))
+            else:
+                self._consec_failures = 0
+            return out
+
+    @_on_engine_device
+    def reset_state(self) -> int:
+        """Crash containment (``serving/engine_loop.py``): fail every queued,
+        running and parked request (``status='error'``) and rebuild the
+        engine's mutable state, keeping the parameters and every program.
+        Returns how many requests were failed.
+
+        The JAX engine builds a fresh pool and fresh device arrays. Here the
+        captured graphs hold the pool's and the device state's pointers, so
+        everything they read is reset IN PLACE: the pool (a quantized pool's
+        ``q`` and ``s``) zeroed, the slot rows, the block table, the slot
+        tokens and the draft history put back to their initial values; only
+        host structures are rebuilt. A replay after the reset then gives the
+        cold engine's tokens. The tier store and the prefix listener survive
+        (the listener is told to forget this engine's keys)."""
+        failed = 0
+        for seq in (*self._queued, *self._running.values()):
+            seq.status = "error"
+            seq.blocks = []
+            seq.reserved_remaining = 0
+            seq.refs = 0
+            seq.slot = -1
+            self._results[seq.uid] = seq
+            failed += 1
+            if self.telemetry.enabled:
+                self._emit_request_span(seq)
+        for seq in self._handoffs.values():
+            seq.status = "error"
+            seq.blocks = []
+            seq.slot = -1
+            self._results[seq.uid] = seq
+            failed += 1
+        self._handoffs.clear()
+        self._queued = []
+        self._running = {}
+        self._pending.clear()
+        self._inflight_chunks.clear()
+        self._kvq_blocks_allocated += self.allocator.allocated_total
+        self.allocator = BlockedAllocator(self.cfg.num_blocks)
+        if self._kvtier is not None:
+            # the tier store survives: its records are keyed by exact token
+            # chains, valid for any allocator of the same parameters
+            self.allocator.demote_hook = self._demote_block
+        if self._prefix_listener is not None:
+            self.allocator.listener = self._prefix_listener
+            self._prefix_listener.on_reset()
+        self._evictions_seen = 0
+        self.block_tables[:] = 0
+        self._bt_dirty.clear()
+        self._free_slots = list(range(self.cfg.max_seqs - 1, -1, -1))
+        self._reserved = 0
+        self._slot_feed[:] = False
+        self._hist_stale[:] = True
+        self._sched_wait = False
+        self._last_batch = None
+        for entry in self._staging.values():
+            entry[0] = None
+        for leaf in (x for name in ("k", "v") for x in kv_leaves(self.cache[name])):
+            # bit-zero, which a float8 payload only takes as bytes (the
+            # decode workspace beside the pools needs nothing: its kernel
+            # resets its counters itself)
+            (leaf.view(torch.uint8) if leaf.element_size() == 1 else leaf).zero_()
+        *zeros, topp_st = self._dev_state
+        for t in (*zeros, self._bt_dev, self._slot_toks):
+            t.zero_()
+        topp_st.fill_(1.0)
+        if self._hist_dev is not None:
+            self._hist_dev.zero_()
+        self._consec_failures = 0
+        if failed:
+            log_dist(f"ragged engine: state reset failed {failed} in-flight request(s)",
+                     ranks=[0])
+        return failed
+
+    def _sample_step_telemetry(self) -> None:
+        """Scheduler gauges after each step, from host counters only (no
+        device read): KV-page occupancy, queue depth, the cumulative
+        dispatch and padding counts, speculation, degradation, staged
+        bytes, program coverage, the prefix cache, the tiers and the KV
+        codec."""
+        tel = self.telemetry
+        usable = self.cfg.num_blocks - 1  # block 0 is scratch
+        free = self.allocator.free_blocks
+        g = tel.gauge
+        g("kv_pages_free", "free KV blocks").set(free)
+        g("kv_page_occupancy", "fraction of usable KV blocks in use").set(
+            (usable - free) / max(usable, 1))
+        g("inference_queue_depth", "requests waiting for admission").set(len(self._queued))
+        g("inference_running_seqs", "admitted sequences").set(len(self._running))
+        g("inference_tokens_scheduled", "useful token-slots scheduled").set(
+            self.tokens_scheduled)
+        g("inference_tokens_padded", "padding token-slots scheduled").set(self.tokens_padded)
+        g("inference_dispatch_count", "device dispatches issued").set(self.dispatch_count)
+        if self.tokens_emitted:
+            g("ragged_dispatches_per_token",
+              "device dispatches divided by tokens emitted (multi-step "
+              "scheduling + speculation drive this toward 0)").set(
+                  self.dispatch_count / self.tokens_emitted)
+        if self.spec_proposed:
+            g("spec_acceptance_rate", "accepted / proposed draft tokens (cumulative)").set(
+                self.spec_accepted / self.spec_proposed)
+        g("degraded_mode", "0 full | 1 host-staged fallback | 2 plain-step fallback").set(
+            self.degraded_mode)
+        if self.h2d_bytes > self._h2d_seen:
+            tel.counter("ragged_h2d_bytes_total",
+                        "bytes staged host-to-device by ragged dispatches").inc(
+                            self.h2d_bytes - self._h2d_seen)
+            self._h2d_seen = self.h2d_bytes
+        if self.program_dispatches:
+            g("ragged_warmup_coverage",
+              "fraction of dispatches served by an already-built program "
+              "(1.0 = no serve-time first runs since warmup)").set(
+                  1.0 - self.program_cold_dispatches / self.program_dispatches)
+        if self.cfg.enable_prefix_cache:
+            alloc = self.allocator
+            bb = self._block_bytes()
+            if alloc.evictions > self._evictions_seen:
+                delta = alloc.evictions - self._evictions_seen
+                tel.counter("prefix_cache_evictions_total",
+                            "cached KV blocks reclaimed under pool pressure").inc(delta)
+                tel.counter("prefix_cache_evicted_bytes_total",
+                            "HBM bytes reclaimed from the prefix cache").inc(delta * bb)
+                self._evictions_seen = alloc.evictions
+            g("prefix_cache_blocks_published", "KV blocks registered in the prefix index").set(
+                alloc.cached_blocks)
+            g("prefix_cache_blocks_retained",
+              "refcount-0 cached blocks held from the free list").set(alloc.retained_blocks)
+            g("prefix_cache_retained_bytes",
+              "HBM bytes pinned by refcount-0 cached blocks").set(alloc.retained_blocks * bb)
+            decided = self.prefix_hits + self.prefix_misses
+            g("prefix_cache_hit_rate", "fraction of admissions with a cached prefix").set(
+                self.prefix_hits / decided if decided else 0.0)
+        if self._kvtier is not None:
+            st = self._kvtier.stats()
+            for tier in ("host", "disk"):
+                g("kvtier_bytes", "bytes parked in the KV tier").set(
+                    st[f"{tier}_bytes"], tier=tier)
+                g("kvtier_blocks", "KV blocks parked in the tier").set(
+                    st[f"{tier}_blocks"], tier=tier)
+            seen = self._kvtier_seen
+            for name, help_ in (
+                ("demotions", "KV blocks demoted HBM->host on eviction"),
+                ("spills", "KV blocks spilled host->disk on overflow"),
+                ("promotions", "KV blocks promoted back into HBM"),
+                ("prefetch_hits", "admissions whose tier prefetch finished in time"),
+                ("prefetch_abandoned", "admissions that outran their tier prefetch"),
+            ):
+                delta = st[name] - seen.get(name, 0)
+                if delta > 0:
+                    tel.counter(f"kvtier_{name}_total", help_).inc(delta)
+                    seen[name] = st[name]
+        g("kvquant_enabled", "low-bit KV pool active (1 = quantized, 0 = fp pool)").set(
+            1.0 if self._kvq is not None else 0.0, codec=self._kvq_name)
+        if self._kvq is not None:
+            saved = ((self._kvq_blocks_allocated + self.allocator.allocated_total)
+                     * (self._fp_block_bytes - self._block_bytes()))
+            delta = saved - self._kvquant_saved_seen
+            if delta > 0:
+                tel.counter("kvquant_bytes_saved_total",
+                            "HBM bytes the low-bit pool saved vs the fp pool, "
+                            "accumulated over allocated blocks").inc(delta, codec=self._kvq_name)
+                self._kvquant_saved_seen = saved
+            g("kvquant_block_multiplier", "resident KV blocks per HBM byte vs an fp16 pool").set(
+                self._fp16_block_bytes / max(1, self._block_bytes()), codec=self._kvq_name)
+
+    def _step_impl(self) -> dict:
         self._sweep_aborts()
         if not self.has_work:
             return {}  # the sweep retired everything schedulable
@@ -1551,6 +2187,8 @@ class RaggedInferenceEngine:
         positions = np.zeros(budget, np.int32)
         emit: list[tuple[int, _SeqState]] = []
         n = self._schedule_decodes(budget, tokens, slots, positions, emit)
+        trace_on = self._tracer.enabled
+        tpairs = [(s, "engine/decode", 1) for _, s in emit] if trace_on else None
 
         # prefill chunks for running prompts within the remaining budget
         for seq in list(self._running.values()):
@@ -1567,6 +2205,8 @@ class RaggedInferenceEngine:
             positions[sl] = np.arange(seq.pos, seq.pos + take, dtype=np.int32)
             seq.pos += take
             n += take
+            if trace_on:
+                tpairs.append((seq, "engine/prefill", take))
             if seq.pos == len(seq.prompt):
                 emit.append((n - 1, seq))  # last prompt token -> first new token
 
@@ -1576,11 +2216,15 @@ class RaggedInferenceEngine:
         self.tokens_padded += bucket - n
 
         max_pos = int(positions[:n].max(initial=0))
+        self._note_program("step", ("step", bucket, self._table_width(max_pos)))
+        self._fire_dispatch()
         logits, self.cache = self.spec.ragged_forward_fn(
             self.params, self._h2d(tokens[:bucket]), self._h2d(slots[:bucket]),
             self._h2d(positions[:bucket]), self._h2d(self._table_view(max_pos)),
             self.cache)
         self._note_dispatch(t0)
+        if trace_on:
+            self._trace_spans(t0, time.perf_counter(), tpairs, mode="step")
         return self._emit_tokens(logits, emit)
 
     def _step_tiled(self) -> dict:
@@ -1630,12 +2274,19 @@ class RaggedInferenceEngine:
         self.tokens_padded += total - n_dec - sched
 
         max_pos = int(positions[:total].max(initial=0)) if total else 0
+        self._note_program("tiled", ("tiled", nd, nt, self._table_width(max_pos)))
+        self._fire_dispatch()
         logits, self.cache = self.spec.ragged_forward_fn(
             self.params, self._h2d(tokens[:total]), self._h2d(slots[:total]),
             self._h2d(positions[:total]), self._h2d(self._table_view(max_pos)),
             self.cache,
             prefill_tiles=(nd, self._h2d(ts), self._h2d(tp), self._h2d(tv), ct))
         self._note_dispatch(t0)
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(),
+                              [(s, "engine/decode", 1) for _, s in emit[:n_dec]]
+                              + [(s, "engine/prefill", take) for s, _, take in chunks],
+                              mode="tiled")
         return self._emit_tokens(logits, emit)
 
     # ----------------------------------------------------- decode run-ahead
@@ -1707,11 +2358,18 @@ class RaggedInferenceEngine:
         pick = make_pick(any(s.temperature > 0.0 for s in seqs), bool(topk.any()),
                          bool((topp < 1.0).any()), self._sample_root, seeds_d, temp_d,
                          topk_d, topp_d)
+        self._note_program("chunk", ("chunk", k, bucket, self._table_width(max_pos)))
+        self._fire_dispatch()
         out = self._decode_steps(k, *feed, pick, gen0_d)
         self._note_dispatch(t0, k)
         t1 = time.perf_counter()
         out = out.cpu().numpy()  # [K, bucket]
-        self.readback_ns += int((time.perf_counter() - t1) * 1e9)
+        t2 = time.perf_counter()
+        self.readback_ns += int((t2 - t1) * 1e9)
+        if self._tracer.enabled:
+            self._trace_spans(t0, t1, [(s, "engine/decode", k) for s in seqs], mode="run_ahead")
+            self._trace_spans(t1, t2, [(s, "engine/readback", k) for s in seqs])
+        now = t2 if self.telemetry.enabled else 0.0
         self.tokens_scheduled += k * t
         self.tokens_padded += k * (bucket - t)
         self.run_ahead_dispatches += 1
@@ -1723,6 +2381,8 @@ class RaggedInferenceEngine:
                 s.generated.append(tok)
                 s.pos += 1
                 emit[s.uid] = tok
+                if now:
+                    self._stamp_emission(s, now)
                 if s.finished:
                     break  # tokens past EOS stay in the pool; freed on release
             if s.finished:
@@ -1790,6 +2450,8 @@ class RaggedInferenceEngine:
         dispatch's and count in no byte total."""
         arr = np.ascontiguousarray(arr, np.int32)
         raw = arr.tobytes()
+        if account and self._faults.enabled:
+            self._faults.fire(POINT_H2D)
         entry = self._staging.get(arr.shape[0])
         if entry is None:
             entry = self._staging[arr.shape[0]] = [
@@ -1921,8 +2583,10 @@ class RaggedInferenceEngine:
         staged = self._stage(slots)
         w = self._table_width(max_pos)
         flags3 = batch_flags(seqs)
-        out = self.programs.run(("chunk", k, bucket, w, *flags3),
-                                self._get_dev_chunk(k, bucket, w, staged, flags3))
+        key = ("chunk", k, bucket, w, *flags3)
+        self._note_program("dev_chunk", key)
+        self._fire_dispatch()
+        out = self.programs.run(key, self._get_dev_chunk(k, bucket, w, staged, flags3))
         emits = []
         for s in seqs:
             s.pos += k
@@ -1937,6 +2601,9 @@ class RaggedInferenceEngine:
         self._pending.append({"kind": "chunk", "out": self._readback(out), "emits": emits,
                               "participants": seqs})
         self._note_dispatch(t0, k)
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(), [(s, "engine/decode", k) for s in seqs],
+                              mode="dev_chunk")
         self._note_steady(True, dirty, (bucket, tuple(slots)), h2d0, stage0)
         return True
 
@@ -2138,8 +2805,10 @@ class RaggedInferenceEngine:
         dirty = self._sync_bt()
         staged = self._stage(np.concatenate([slots, eos, limit]))
         w = self._table_width(max_pos)
-        out, per_iteration = self.programs.run_loop(
-            *self._sched_program(k, bucket, w, staged, batch_flags(s for s, _ in kept)))
+        key, prog = self._sched_program(k, bucket, w, staged, batch_flags(s for s, _ in kept))
+        self._note_program("dev_sched", key)
+        self._fire_dispatch()
+        out, per_iteration = self.programs.run_loop(key, prog)
         emits = []
         for s, k_s in kept:
             s.pos += k_s
@@ -2154,6 +2823,9 @@ class RaggedInferenceEngine:
                               "participants": [s for s, _ in kept], "k": k, "t": bucket,
                               "per_iteration": per_iteration})
         self._note_dispatch(t0, 0)  # its forwards are counted at reconcile
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(), [(s, "engine/decode", ks) for s, ks in kept],
+                              mode="dev_sched")
         self._note_steady(True, dirty, (staged.shape[0], tuple(slots)), h2d0, stage0)
         return True
 
@@ -2257,8 +2929,10 @@ class RaggedInferenceEngine:
         decode_only = n == n_dec
         # decode-only steps replay as graphs; steps with prefill run eagerly
         flags3 = batch_flags(seq for _, seq in emit)
-        picked = self.programs.run(("step", t_total, nd, nt, w, *flags3),
-                                   self._get_dev_step(t_total, nd, nt, w, staged, flags3),
+        key = ("step", t_total, nd, nt, w, *flags3)
+        self._note_program("dev_step", key)
+        self._fire_dispatch()
+        picked = self.programs.run(key, self._get_dev_step(t_total, nd, nt, w, staged, flags3),
                                    capture=decode_only)
         participants = list({seq.slot: seq for _, seq in emit}.values())
         for seq in participants:
@@ -2267,6 +2941,10 @@ class RaggedInferenceEngine:
         self._pending.append({"kind": "step", "out": self._readback(picked), "emit": emit,
                               "participants": participants})
         self._note_dispatch(t0)
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(),
+                              [(s, "engine/decode" if row < n_dec else "engine/prefill", 1)
+                               for row, s in emit], mode="dev_step")
         self._note_steady(decode_only, dirty, (staged.shape[0], tuple(slots[:t_total])), h2d0,
                           stage0)
         return True
@@ -2275,22 +2953,31 @@ class RaggedInferenceEngine:
         """Fold a dispatch's tokens into ``seq``; tokens past its EOS or its
         budget (scheduled ahead before the readback showed the end) are
         discarded."""
+        now = time.perf_counter() if self.telemetry.enabled else 0.0
         for t in toks:
             if seq.finished:
                 break
             seq.generated.append(int(t))
             out[seq.uid] = int(t)
             self.tokens_emitted += 1
+            if now:
+                self._stamp_emission(seq, now)
 
-    def _read(self, out) -> np.ndarray:
+    def _read(self, out, pairs_fn) -> np.ndarray:
         """A dispatch's tokens on the host, once its readback (``_readback``)
-        has landed."""
+        has landed. ``pairs_fn()``: the readback spans' ``(seq, name,
+        tokens)``, called only while the tracer is on."""
+        if self._faults.enabled:
+            self._faults.fire(POINT_READBACK)
         t0 = time.perf_counter()
         host, event = out
         if event is not None:
             event.synchronize()
         toks = host.cpu().numpy()
-        self.readback_ns += int((time.perf_counter() - t0) * 1e9)
+        t1 = time.perf_counter()
+        self.readback_ns += int((t1 - t0) * 1e9)
+        if self._tracer.enabled:
+            self._trace_spans(t0, t1, pairs_fn())
         return toks
 
     def _drop_refs(self, participants) -> None:
@@ -2305,8 +2992,13 @@ class RaggedInferenceEngine:
         """Read back the oldest pending dispatch's tokens, fold them into
         host state and release each participant whose last pending
         reference this was and which has finished."""
-        rec = self._pending.pop(0)
-        toks = self._read(rec["out"])
+        rec = self._pending[0]
+        if rec["kind"] == "step":
+            pairs = lambda: [(s, "engine/readback", 1) for _, s in rec["emit"]]  # noqa: E731
+        else:
+            pairs = lambda: [(s, "engine/readback", k) for s, k in rec["emits"]]  # noqa: E731
+        toks = self._read(rec["out"], pairs)
+        self._pending.pop(0)
         out: dict = {}
         if rec["kind"] == "step":
             for row, seq in rec["emit"]:
@@ -2323,6 +3015,13 @@ class RaggedInferenceEngine:
             if self.cfg.spec_draft:
                 self.spec_proposed += proposed
                 self.spec_accepted += accepted
+                if self.telemetry.enabled and proposed:
+                    self.telemetry.counter(
+                        "spec_tokens_proposed_total",
+                        "draft tokens proposed by self-speculative decode").inc(proposed)
+                    self.telemetry.counter(
+                        "spec_tokens_accepted_total",
+                        "draft tokens accepted by exact-match verification").inc(accepted)
             self.forwards += iterations
             self.sched_iterations += iterations
             if rec["per_iteration"] is not None:
@@ -2481,6 +3180,7 @@ class RaggedInferenceEngine:
             if 0 < t and nd <= t <= budget + nd:
                 yield kk, nd, nt, w, t
 
+    @_on_engine_device
     def warmup(self, sampled: bool = False, has_tk: bool = False, has_tp: bool = False) -> int:
         """Prepare the program families before serving, the counterpart of
         the JAX engine's ``warmup()``, for batches whose flags (``batch_flags``)
@@ -2505,6 +3205,7 @@ class RaggedInferenceEngine:
             for k, nd, nt, w, t in self._fused_family():
                 n += 1
                 if not self.cfg.device_state:
+                    self._program_keys.add(("fused", k, nd, nt, *flags3))
                     continue
                 nt_prog = nt if self._use_tiles else 0
                 ndl, ntl = max(nd, 1), max(nt_prog, 1)
@@ -2513,15 +3214,21 @@ class RaggedInferenceEngine:
                 if nt_prog:
                     parts += [np.full(ntl, max_seqs), np.zeros(2 * ntl)]
                 staged = self._stage(np.concatenate(parts).astype(np.int32), account=False)
-                self.programs.warm(("fused", t, k, nd, nt_prog, w, *flags3),
-                                   self._get_dev_fused(t, k, nd, nt_prog, w, staged, flags3))
+                key = ("fused", t, k, nd, nt_prog, w, *flags3)
+                self._program_keys.add(key)
+                self.programs.warm(key, self._get_dev_fused(t, k, nd, nt_prog, w, staged, flags3))
         if self.cfg.sched_steps >= 2 and self.cfg.device_state:
             for k, t, w in self._sched_family():
                 n += 1
                 staged = self._stage(np.concatenate(
                     [np.full(t, max_seqs), np.full(t, -1), np.zeros(t)]).astype(np.int32),
                     account=False)
-                self.programs.warm(*self._sched_program(k, t, w, staged, flags3))
+                key, prog = self._sched_program(k, t, w, staged, flags3)
+                self._program_keys.add(key)
+                self.programs.warm(key, prog)
+        # program coverage counts serving traffic only
+        self.program_dispatches = 0
+        self.program_cold_dispatches = 0
         return n
 
     def _sched_family(self):
@@ -2628,10 +3335,16 @@ class RaggedInferenceEngine:
         staged = [self._h2d(a) for a in (tokens, slots, positions, feed_sel, dec_rem, eos_row,
                                          pf_last, *tiles, self._table_view(max_pos), seeds,
                                          gidx, temp, topk, topp)]
+        self._note_program("fused", ("fused", k, nd, nt, *flags3))
+        self._fire_dispatch()
         packed = self._get_fused_chunk(k, nd, nt, flags3)(
             *staged[:7], tuple(staged[7:10]) if nt else None, staged[10], staged[11:])
         self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
         self._push_chunk(packed, k, nd, decs, chunks, pf_done)
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(),
+                              [(s, "engine/decode", ks) for s, ks in decs]
+                + [(s, "engine/prefill", take) for s, _, take in chunks], mode="fused")
         return True
 
     def _fused_rows(self, decs, chunks, nd: int, nt: int, k: int, t_total: int):
@@ -2777,10 +3490,16 @@ class RaggedInferenceEngine:
         w = self._table_width(max_pos)
         t = tokens.shape[0]
         flags3 = batch_flags([seq for seq, _ in decs] + [seq for seq, _, _ in chunks])
-        packed = self.programs.run(("fused", t, k, nd, nt, w, *flags3),
-                                   self._get_dev_fused(t, k, nd, nt, w, staged, flags3))
+        key = ("fused", t, k, nd, nt, w, *flags3)
+        self._note_program("dev_fused", key)
+        self._fire_dispatch()
+        packed = self.programs.run(key, self._get_dev_fused(t, k, nd, nt, w, staged, flags3))
         self._push_chunk(packed, k, nd, decs, chunks, pf_done)
         self._note_dispatch(t0, 1 + (k - 1) * (nd > 0))
+        if self._tracer.enabled:
+            self._trace_spans(t0, time.perf_counter(),
+                              [(s, "engine/decode", ks) for s, ks in decs]
+                + [(s, "engine/prefill", take) for s, _, take in chunks], mode="dev_fused")
         self._note_steady(not chunks, dirty, (staged.shape[0], tuple(slots)), h2d0, stage0)
         return True
 
@@ -2812,8 +3531,11 @@ class RaggedInferenceEngine:
         state: a prompt-completing row's first token, then each decode row's
         ``k_s`` tokens, cut at EOS and at ``max_new_tokens`` (speculated
         tokens past either are discarded); then the deferred releases."""
-        rec = self._inflight_chunks.pop(0)
-        packed = self._read(rec["out"])
+        rec = self._inflight_chunks[0]
+        packed = self._read(rec["out"], lambda: (
+            [(s, "engine/readback", ks) for s, ks in rec["decs"]]
+            + [(s, "engine/readback", 1) for _, s in rec["pf_done"]]))
+        self._inflight_chunks.pop(0)
         n_dec = rec["k"] * rec["nd"]
         dec_toks = packed[:n_dec].reshape(rec["k"], rec["nd"])
         tok0 = packed[n_dec:]
@@ -2866,6 +3588,7 @@ class RaggedInferenceEngine:
             return self._reconcile_pending()
         return self._step_fused()
 
+    @_on_engine_device
     def drain(self) -> dict:
         """Reconcile every fused chunk in flight and every pending dispatch
         (a flush point for callers that need host-complete state)."""

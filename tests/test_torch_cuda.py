@@ -973,3 +973,130 @@ def test_quantized_gather_scatter_in_place(cuda, quant):
         pool = eng.cache[name]
         assert torch.equal(_bits(pool.q[:, 4:7]), _bits(pool.q[:, 1:4]))
         assert torch.equal(pool.s[:, 4:7], pool.s[:, 1:4])
+
+
+# ------------------------------------------------ serving-tier contracts
+def _graph_pointers(eng) -> list:
+    """The data pointers of every tensor a captured graph reads or writes
+    in place: the pool, the slot rows, the block table, the slot tokens,
+    the staging buffers and the draft history."""
+    from deepspeed_tpu_torch.inference.kvquant import kv_leaves
+
+    ts = [x for name in ("k", "v") for x in kv_leaves(eng.cache[name])]
+    ts += [*eng._dev_state, eng._bt_dev, eng._slot_toks, *(e[1] for e in eng._staging.values())]
+    if eng._hist_dev is not None:
+        ts.append(eng._hist_dev)
+    return [t.data_ptr() for t in ts]
+
+
+def _put_seven(eng, max_new=24):
+    rng = np.random.default_rng(11)
+    for i, n in enumerate((3, 4, 5, 8, 9, 13, 17)):
+        eng.put(f"r{i}", rng.integers(0, ENGINE_CFG["vocab_size"], n).tolist(),
+                max_new_tokens=max_new)
+
+
+@pytest.mark.parametrize("mode", ["fused", "fused_spec"])
+def test_reset_state_in_place_then_replay(cuda, mode):
+    """``reset_state()`` in the middle of a run keeps every graph-held
+    tensor where it is, and the warmed graphs then replay the cold
+    engine's tokens, with nothing captured anew."""
+    eng = _graph_engine(mode, torch.float32, graphs=True)
+    eng.warmup()
+    _put_seven(eng)
+    for _ in range(6):
+        eng.step()
+    before = _graph_pointers(eng)
+    captures = eng.programs.captures
+    assert eng.reset_state() > 0
+    torch.cuda.synchronize()
+    assert _graph_pointers(eng) == before
+    assert not any(x.any() for x in (eng.cache["k"], eng.cache["v"], eng._bt_dev))
+    _put_seven(eng)
+    out = eng.generate_all()
+    torch.cuda.synchronize()
+    cold, _, _, _ = _graph_run(mode, torch.float32, graphs=False)
+    assert out == cold
+    assert eng.programs.captures == captures and eng.programs.replays > 0
+    assert set(before) <= set(_graph_pointers(eng))
+
+
+def test_recovery_with_fused_chunks_in_flight(cuda):
+    """Dispatch faults while up to three fused chunks are in flight on the
+    card: recovery rewrites the graph-held rows in place, in stream order
+    after the chunks already launched, and the replayed run gives the
+    fault-free eager tokens."""
+    from deepspeed_tpu_torch.serving import faults
+
+    eng = _graph_engine("fused", torch.float32, graphs=True)
+    eng.cfg.degrade_after = 0
+    eng.cfg.retry_backoff_s = 0.0
+    eng.cfg.dispatch_retries = 4
+    eng.warmup()
+    before = _graph_pointers(eng)
+    inflight = []
+    orig = eng._recover_device_path
+
+    def spy():
+        inflight.append(len(eng._inflight_chunks))
+        orig()
+
+    eng._recover_device_path = spy
+    inj = faults.get_fault_injector()
+    inj.configure([{"point": faults.POINT_DISPATCH, "kind": "raise", "after": 6},
+                   {"point": faults.POINT_READBACK, "kind": "hang", "after": 9, "delay_s": 0.0},
+                   {"point": faults.POINT_DISPATCH, "kind": "raise", "after": 14, "times": 2}])
+    try:
+        _put_seven(eng)
+        out = eng.generate_all()
+        torch.cuda.synchronize()
+    finally:
+        inj.reset()
+    ref, _, _, _ = _graph_run("fused", torch.float32, graphs=False)
+    assert out == ref
+    assert eng.step_failures == 4 and max(inflight) >= 2
+    assert _graph_pointers(eng)[:len(before)] == before
+
+
+class _SyncCounter:
+    """Counts ``torch.cuda.synchronize`` and CUDA event waits while on."""
+
+    def __init__(self, monkeypatch):
+        self.syncs = self.waits = 0
+        sync, wait = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+        def counted_sync(*a, **k):
+            self.syncs += 1
+            return sync(*a, **k)
+
+        def counted_wait(ev):
+            self.waits += 1
+            return wait(ev)
+
+        monkeypatch.setattr(torch.cuda, "synchronize", counted_sync)
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", counted_wait)
+
+
+def test_telemetry_adds_no_synchronisation(cuda, monkeypatch):
+    """The same warmed run with telemetry and tracing off and on: the same
+    dispatches, replays, readbacks (event waits) and synchronize calls."""
+    from deepspeed_tpu_torch import telemetry
+
+    counts = []
+    try:
+        for on in (False, True):
+            telemetry.TELEMETRY.reset()
+            if on:
+                telemetry.configure(enabled=True, tracing=True, slo=True)
+            eng = _graph_engine("fused", torch.float32, graphs=True)
+            eng.warmup()
+            counter = _SyncCounter(monkeypatch)
+            _put_seven(eng)
+            out = eng.generate_all()
+            counts.append((out, eng.dispatch_count, eng.programs.replays, counter.waits,
+                           counter.syncs))
+            monkeypatch.undo()
+    finally:
+        telemetry.TELEMETRY.reset()
+    assert counts[0] == counts[1]
+    assert counts[0][3] == counts[0][1]  # one readback wait a dispatch

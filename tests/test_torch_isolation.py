@@ -35,6 +35,19 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.runtime.precision",
     "deepspeed_tpu_torch.runtime.engine",
     "deepspeed_tpu_torch.utils.timer",
+    "deepspeed_tpu_torch.telemetry",
+    "deepspeed_tpu_torch.telemetry.registry",
+    "deepspeed_tpu_torch.telemetry.tracing",
+    "deepspeed_tpu_torch.telemetry.exporters",
+    "deepspeed_tpu_torch.telemetry.slo",
+    "deepspeed_tpu_torch.telemetry.core",
+    "deepspeed_tpu_torch.serving",
+    "deepspeed_tpu_torch.serving.protocol",
+    "deepspeed_tpu_torch.serving.faults",
+    "deepspeed_tpu_torch.serving.engine_loop",
+    "deepspeed_tpu_torch.serving.router",
+    "deepspeed_tpu_torch.serving.frontend",
+    "deepspeed_tpu_torch.serving.cluster",
 )
 
 _PROBE = """

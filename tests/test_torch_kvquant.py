@@ -127,11 +127,14 @@ def port_run(quant: str, mode: str, full: bool) -> dict:
                 record=eng.export_handoff("h").to_bytes() if full else None)
 
 
-@functools.cache
 def jax_run(quant: str, mode: str) -> dict:
     """The JAX engine's run of ``workload`` (full in FULL_MODE: then also
     its handoff record and, on the same engine, the tokens it resumes from
-    the port's record)."""
+    the port's record), once a test run (``torch_ragged_common.shared``)."""
+    return common.shared(_jax_run, quant, mode)
+
+
+def _jax_run(quant: str, mode: str) -> dict:
     full = mode == FULL_MODE
     eng = jax_engine(quant, **MODES[mode])
     out = workload(eng, full)

@@ -7,7 +7,13 @@ that runs tests of both files does each of it once; callers must not modify
 what these functions return.
 """
 
+import fcntl
 import functools
+import hashlib
+import os
+import pickle
+import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,33 @@ RCFG = dict(max_tokens_per_step=16, max_seqs=3, block_size=4, num_blocks=49,
 # prompt lengths on both sides of block edges, more requests than slots
 PROMPT_LENS = (3, 4, 5, 8, 9, 13, 17)
 MAX_NEW = 7
+
+
+@functools.cache
+def shared(fn, *args):
+    """``fn(*args)`` computed once a test run and cached in the process.
+    Under pytest-xdist the first worker to ask computes it and pickles it
+    into a directory that every worker of the run shares (under the temp
+    directory, named by the run's id); a worker asking meanwhile waits on
+    the entry's lock and loads it. So a JAX reference run costs one worker
+    its compile, not every worker that holds a test needing it. ``fn`` must
+    not call ``shared`` itself (two workers could then wait on each other)."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None:
+        return fn(*args)
+    key = hashlib.sha256(f"{fn.__module__}.{fn.__qualname__}{args!r}".encode()).hexdigest()
+    root = Path(tempfile.gettempdir()) / f"dstpu-torch-tests-{run}"
+    root.mkdir(exist_ok=True)
+    path = root / f"{key[:24]}.pkl"
+    with open(root / f"{key[:24]}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return pickle.loads(path.read_bytes())
+        out = fn(*args)
+        tmp = path.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(out))
+        os.replace(tmp, path)
+        return out
 
 
 @functools.cache
