@@ -142,7 +142,20 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
 7. train parity: loss, every gradient and a 4-step loss trajectory through
    the kernels vs through the plain attention path in fp32 (2 layers,
    full width, B=1, S=2048), and the gradients' relative error in bf16 at
-   4 layers.
+   4 layers;
+8. train_zero: the training cell at ZeRO stages 0, 1, 2 and 3 under a
+   one-rank NCCL group on cuda:0 (``bench.py:173-176``'s ``mfu_zero3`` on
+   one card), 4 batches each: stages 1-3 against stage 0's losses and grad
+   norms (bitwise, else 1e-6 relative), 8 / 4 / 4 flash launches a step, no
+   plain call, time a step, tokens/s, peak memory and the comms logger's
+   rows;
+9. checkpoint: Llama-3-8B widths at 1 layer (1,268,789,248 parameters) at
+   stage 3 under NCCL trains 2 steps, saves (the JAX package's format and
+   two-phase commit, under ``TMPDIR``), trains 2 more and saves a newer tag;
+   one fragment of the newer tag is cut short; a fresh stage-0 engine loads
+   the directory, walks the ladder past the corrupt tag to the older one,
+   and its next 2 losses equal the continuous run's bit for bit; bytes
+   written, save, verify and load seconds.
 
 Each phase prints one JSON line. The script ends with a ``{"kernels": ...}``
 line and, as its last line, ``{"ok": true, "device": {...}}``; any failure
@@ -3204,6 +3217,220 @@ def train_parity_phase(torch, np, llama, engine_mod):
             raise AssertionError(f"train parity {run} {key}: {out[run][key]} > {limit}")
 
 
+# ------------------------------------- ZeRO stages and checkpoints (item 10)
+ZERO_STEPS = 4
+ZERO_REL_LIMIT = 1e-6          # stages 1-3 against stage 0 where not bitwise
+CKPT_LAYERS = 1                # checkpoint cell: full width, depth cut to 1 layer
+CKPT_STATE_BYTES_PER_PARAM = 12  # fp32 master + Adam mu + nu
+
+
+def nccl_group(torch):
+    """Environment for a one-rank NCCL group on cuda:0 (the engine's
+    ``init_distributed`` starts it): NCCL refuses two ranks on one device."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+
+
+def end_nccl_group():
+    from deepspeed_tpu_torch.comm import comm
+
+    comm.destroy_distributed()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        os.environ.pop(k, None)
+
+
+def zero_config(stage: int, **extra) -> dict:
+    return dict(TRAIN_CONFIG, zero_optimization={"stage": stage},
+                comms_logger={"enabled": True}, **extra)
+
+
+def zero_batches(np, vocab: int, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)}
+            for _ in range(n)]
+
+
+def train_zero_phase(torch, np, llama, engine_mod, fa) -> dict:
+    """bench.py's mfu_zero3 on one card (``bench.py:173-176``): the training
+    cell at ZeRO stages 0-3 under a one-rank NCCL group, the same 4 batches
+    each; stages 1-3 held to stage 0's losses and grad norms."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.utils.comms_logging import COMMS_LOGGER
+
+    cfg = train_cfg(llama, TRAIN_LAYERS)
+    batches = zero_batches(np, cfg.vocab_size, ZERO_STEPS, seed=5)
+    runs, per_step = {}, {}
+    nccl_group(torch)
+    try:
+        for stage in (0, 1, 2, 3):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
+                                                 config=zero_config(stage), seed=0)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            COMMS_LOGGER.reset()
+            fa.reset_counts()
+            losses, norms, ms, launches = [], [], [], []
+            for b in batches:
+                before = flash_counts(fa)
+                losses.append(float(eng.train_batch(b)))
+                after = flash_counts(fa)
+                norms.append(eng.get_global_grad_norm())
+                ms.append(eng.tput_timer.last_duration * 1e3)
+                launches.append({k: after[k] - before[k] for k in after})
+            plain = fa.flash_attention_fwd_ref.calls + fa.flash_attention_bwd_ref.calls
+            timed = ms[1:]   # the first step also starts NCCL's and cuBLAS's work
+            step_ms = sum(timed) / len(timed)
+            runs[stage] = dict(losses=losses, grad_norms=norms, step_ms=ms,
+                               time_per_step=step_ms / 1e3,
+                               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+                               kernel_launches_per_step=launches[-1],
+                               plain_version_calls=plain, init_s=init_s,
+                               sharded_leaves=sum(lp.state_sharded for lp in eng.plan),
+                               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                               comms=COMMS_LOGGER.rows())
+            if stage == 3:
+                comms_text = comm.log_summary()
+            per_step[stage] = launches[-1]
+            expected = {"flash_fwd": 2 * TRAIN_LAYERS, "flash_dkdv": TRAIN_LAYERS,
+                        "flash_dq": TRAIN_LAYERS}
+            if any(n != expected for n in launches):
+                raise AssertionError(f"train_zero stage {stage}: flash launches {launches}, "
+                                     f"want {expected} a step")
+            if plain:
+                raise AssertionError(f"train_zero stage {stage}: plain attention ran {plain} "
+                                     "times")
+            if not all(np.isfinite(x) for x in losses + norms):
+                raise AssertionError(f"train_zero stage {stage}: a non-finite loss or norm")
+            eng.destroy()
+            del eng
+    finally:
+        end_nccl_group()
+    base = runs[0]
+    out = {}
+    for stage in (1, 2, 3):
+        r = runs[stage]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"] + r["grad_norms"],
+                                                       base["losses"] + base["grad_norms"]))
+        bitwise = r["losses"] == base["losses"] and r["grad_norms"] == base["grad_norms"]
+        out[stage] = dict(bitwise=bitwise, max_rel_diff=rel)
+    emit("train_zero", model="llama3_8b widths", layers=TRAIN_LAYERS,
+         group="nccl, world 1 on cuda:0", steps=ZERO_STEPS, source="bench.py:173-176",
+         reduced="depth 32 -> 4 layers; world 1 (one card: NCCL refuses two ranks on one "
+                 "device), so every leaf is one shard and each collective runs on one rank",
+         stages={s: {k: v for k, v in r.items() if k != "comms"} for s, r in runs.items()},
+         against_stage0=out, limit_rel=ZERO_REL_LIMIT,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    emit("train_zero_comms", stages={s: r["comms"] for s, r in runs.items()},
+         summary_stage3=comms_text)
+    for stage, res in out.items():
+        if not (res["bitwise"] or res["max_rel_diff"] <= ZERO_REL_LIMIT):
+            raise AssertionError(f"train_zero stage {stage} against stage 0: {res}")
+    return per_step
+
+
+def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
+    """Save at stage 3 under a one-rank NCCL group, load into a fresh stage-0
+    engine through the fallback ladder past a corrupt newer tag, and resume:
+    the resumed losses equal the continuous run's bitwise."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch import telemetry
+
+    cfg = train_cfg(llama, CKPT_LAYERS)
+    nparams = llama.num_params(cfg)
+    root = tempfile.gettempdir()
+    need = 2 * CKPT_STATE_BYTES_PER_PARAM * nparams  # two tags on disk at once
+    free = shutil.disk_usage(root).free
+    if free < 1.1 * need:
+        raise AssertionError(f"checkpoint: {free} bytes free under {root}, the phase "
+                             f"writes {need}")
+    save_dir = tempfile.mkdtemp(prefix="dstpu-ckpt-chip-smoke-", dir=root)
+    batches = zero_batches(np, cfg.vocab_size, 4, seed=6)
+    launches = {k: 0 for k in flash_counts(fa)}
+    nccl_group(torch)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.reset_counts()
+        eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
+                                             config=zero_config(3), seed=0)
+        first = [float(eng.train_batch(b)) for b in batches[:2]]
+        t0 = time.perf_counter()
+        older = eng.save_checkpoint(save_dir)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(older, f)) for f in os.listdir(older))
+        continuous = [float(eng.train_batch(b)) for b in batches[2:]]
+        newer = eng.save_checkpoint(save_dir)
+        eng.destroy()
+        del eng
+        launches = flash_counts(fa)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # corrupt one fragment of the newer tag: cut its model shard short
+        victim = os.path.join(newer, "model_shard_p0.npz")
+        size = os.path.getsize(victim)
+        with open(victim, "r+b") as f:
+            f.truncate(size - min(1 << 20, size // 2))
+        fresh, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
+                                               config=zero_config(0), seed=1)
+        telemetry.TELEMETRY.reset()
+        telemetry.configure(enabled=True)
+        try:
+            t0 = time.perf_counter()
+            loaded, _ = fresh.load_checkpoint(save_dir)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            reg = telemetry.TELEMETRY.registry
+            verify = reg.histogram("checkpoint_verify_seconds")
+            ladder = dict(
+                verify_s=verify.sum(), verifications=verify.count(),
+                fallbacks=reg.counter("checkpoint_fallback_total").value(),
+                corrupt_size_mismatch=reg.counter("checkpoint_corrupt_total").value(
+                    stage="size-mismatch"))
+        finally:
+            telemetry.TELEMETRY.reset()
+        before_resume = flash_counts(fa)
+        resumed = [float(fresh.train_batch(b)) for b in batches[2:]]
+        after_resume = flash_counts(fa)
+        launches = {k: launches[k] + after_resume[k] - before_resume[k] for k in launches}
+        steps = fresh.global_steps
+        fresh.destroy()
+        del fresh
+    finally:
+        end_nccl_group()
+        shutil.rmtree(save_dir, ignore_errors=True)
+    emit("checkpoint", model="llama3_8b widths", layers=CKPT_LAYERS, num_params=nparams,
+         reduced="depth 32 -> 1 layer (fp32 masters + Adam mu + nu at 12 bytes a "
+                 "parameter, two tags on disk at once)",
+         saved_stage=3, loaded_stage=0, group="nccl, world 1 on cuda:0",
+         bytes_written=written, save_s=save_s, load_s=load_s, **ladder,
+         tags=[os.path.basename(older), os.path.basename(newer)],
+         corrupted=os.path.relpath(victim, save_dir), loaded=os.path.basename(loaded),
+         losses_before_save=first, continuous=continuous, resumed=resumed,
+         resumed_equal_bitwise=resumed == continuous, global_steps_after=steps,
+         kernel_launches=launches, disk_free_bytes=free,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if os.path.basename(loaded) != os.path.basename(older):
+        raise AssertionError(f"checkpoint: the ladder loaded {loaded}, want {older}")
+    if not (ladder["fallbacks"] >= 1 and ladder["corrupt_size_mismatch"] >= 1):
+        raise AssertionError(f"checkpoint: the corrupt tag was not walked past: {ladder}")
+    if resumed != continuous:
+        raise AssertionError(f"checkpoint: resumed {resumed} != continuous {continuous}")
+    if not written >= CKPT_STATE_BYTES_PER_PARAM * nparams:
+        raise AssertionError(f"checkpoint: {written} bytes written for {nparams} parameters")
+    return launches
+
+
 # ------------------------------------------------- the HTTP serving tier
 # bench.py:serving_bench_main's accelerator branch (:1153-1157): 48
 # requests of 48 new tokens, Poisson arrivals at 8/s, prompts of
@@ -3845,6 +4072,9 @@ def main() -> int:
     # 6. the training path, and 7. its parity
     launches.update(train_phase(torch, np, llama, engine_mod, fa))
     train_parity_phase(torch, np, llama, engine_mod)
+    # 8. ZeRO stages 1-3 against stage 0, and 9. checkpoints, both under NCCL
+    zero_launches = train_zero_phase(torch, np, llama, engine_mod, fa)
+    ckpt_launches = checkpoint_phase(torch, np, llama, engine_mod, fa)
 
     csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
     sources = {"paged_decode": (csrc + "paged_decode.cu",
@@ -3876,6 +4106,9 @@ def main() -> int:
                             launches_kv_quant_int8=kvq_launches.get(name),
                             launches_woq=woq_launches.get(name),
                             launches_serving=serving_launches.get(name),
+                            launches_train_zero_per_step={
+                                str(stage): c.get(name) for stage, c in zero_launches.items()},
+                            launches_checkpoint=ckpt_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

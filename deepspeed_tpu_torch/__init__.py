@@ -10,8 +10,9 @@ dense-cache ``InferenceEngine`` (``init_inference``), and seeded sampling
 with the reference's exact threefry draws. Training:
 ``initialize`` -> ``Engine.train_batch`` (AdamW/Adam/SGD with optax
 semantics, bf16 compute over fp32 masters, clipping, activation
-checkpointing, one device), with the flash-attention forward, dK/dV and dQ
-kernels. Every kernel is written by hand in CUDA for Hopper (``ops/cuda``).
+checkpointing), data parallel over ``torch.distributed`` with ZeRO stages
+0-3, and checkpoints in the JAX package's format, with the
+flash-attention forward, dK/dV and dQ kernels. Every kernel is written by hand in CUDA for Hopper (``ops/cuda``).
 
 Exports load lazily so ``import deepspeed_tpu_torch`` stays cheap.
 """

@@ -2,8 +2,17 @@
 and the causal-LM loss (``:333 causal_lm_loss``).
 
 The port's ``ModelSpec`` carries what the dense and ragged serving engines
-and the training engine need. The sharding axes and pipeline parts of the JAX
-package's spec arrive with multi-GPU training.
+and the training engine need, with the params' logical axes that the ZeRO
+planner reads (``parallel/partition.py``). The pipeline parts of the JAX
+package's spec arrive with item 12.
+
+``ShardCtx`` carries into model code the one hook of the JAX package's
+(``deepspeed_tpu/models/api.py:45``) the port needs: the engine's ZeRO-3
+gather, installed on the spec's context as the JAX engine installs its qwZ
+and param-stream hooks. Model code calls
+``ctx.gather(key, w)`` where it uses a parameter (a layer's weights inside
+the checkpointed layer function, so the recompute gathers again); with no
+hook installed it is the identity.
 """
 
 from __future__ import annotations
@@ -12,6 +21,19 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+
+
+@dataclass
+class ShardCtx:
+    """Per-model hooks the engine installs. ``param_gather(key, w,
+    stacked)``: the full compute-dtype weight for the leaf ``key``
+    (``keystr`` of its path) from what the engine passed in; ``stacked``
+    says ``w`` is one layer's slice of a ``[L, ...]`` leaf."""
+
+    param_gather: Any = None
+
+    def gather(self, key: str, w, stacked: bool = False):
+        return w if self.param_gather is None else self.param_gather(key, w, stacked)
 
 
 @dataclass
@@ -45,6 +67,11 @@ class ModelSpec:
     # parameter names weight-only quantization keeps dense (the embedding
     # gather wants a plain tensor)
     woq_skip: tuple = ("embed",)
+    # tree congruent to the params, each leaf a tuple of logical axis names
+    # (``"layers"``, ``"embed"``, ``"heads"``, ...), for the ZeRO planner
+    param_logical_axes: Any = None
+    # the context the model's functions read their hooks from
+    shard_ctx: ShardCtx | None = None
 
 
 def causal_lm_loss(

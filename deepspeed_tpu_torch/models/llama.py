@@ -11,8 +11,10 @@ Activation checkpointing wraps each layer in
 ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``; a remat
 policy is a ``context_fn`` for it (``runtime/engine.py`` resolves the
 config's policy names), and ``None`` saves nothing but the layer's input.
-The JAX package's ``ShardCtx`` is not ported: on one device it is the
-identity.
+The training functions take a ``ShardCtx`` (``models/api.py``): each layer
+passes its weights through ``ctx.gather`` first thing inside the
+checkpointed layer function (the ZeRO-3 gather, and its recompute in the
+backward), and the embedding, final norm and head where they are used.
 """
 
 from __future__ import annotations
@@ -25,11 +27,32 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.api import ModelSpec, causal_lm_loss
+from deepspeed_tpu_torch.models.api import ModelSpec, ShardCtx, causal_lm_loss
 from deepspeed_tpu_torch.models.paged import (append_kv_and_attend, init_decode_workspace,
                                               ragged_pool_attention, write_kv_paged)
 from deepspeed_tpu_torch.ops.attention import apply_rope, attention
 from deepspeed_tpu_torch.ops.quantizer import dequantize_layer, maybe_dequantize
+
+
+# logical axes of each parameter (``deepspeed_tpu/models/llama.py:89``)
+PARAM_LOGICAL_AXES = {
+    "embed": ("vocab", "embed"),
+    "layers": {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "ffn"),
+        "w_up": ("layers", "embed", "ffn"),
+        "w_down": ("layers", "ffn", "embed"),
+    },
+    "final_norm": ("embed",),
+    "lm_head": ("embed", "vocab"),
+}
+
+_NO_CTX = ShardCtx()
 
 
 @dataclass(frozen=True)
@@ -105,21 +128,25 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
 
 
-def lm_head(cfg: LlamaConfig, params: dict, dtype: torch.dtype) -> torch.Tensor:
+def lm_head(cfg: LlamaConfig, params: dict, dtype: torch.dtype,
+            ctx: ShardCtx = _NO_CTX) -> torch.Tensor:
     """The output projection in ``dtype``; a weight-only quantized head
     dequantizes straight into it (the reference dequantizes to fp32 and
     casts: one rounding of the same fp32 product either way)."""
     if cfg.tie_embeddings:
-        return params["embed"].T.to(dtype)
-    return maybe_dequantize(params["lm_head"], dtype).to(dtype)
+        return ctx.gather("['embed']", params["embed"]).T.to(dtype)
+    return maybe_dequantize(ctx.gather("['lm_head']", params["lm_head"]), dtype).to(dtype)
 
 
 # ------------------------------------------------------------------ training
 def _decoder_layer(cfg: LlamaConfig, attn_impl: str, x: torch.Tensor, lp: dict,
-                   positions: torch.Tensor | None = None) -> torch.Tensor:
-    # the dense engine's forward() on weight-only quantized weights, one
-    # layer at a time (the reference's ShardCtx.layer_weights); training's
-    # dicts hold no quantized weight and pass through untouched
+                   positions: torch.Tensor | None = None,
+                   ctx: ShardCtx = _NO_CTX) -> torch.Tensor:
+    # the reference's ShardCtx.layer_weights: the ZeRO-3 gather of this
+    # layer's weights, then weight-only dequantization (the dense engine's
+    # forward() on quantized weights; training's dicts hold none)
+    if ctx.param_gather is not None:
+        lp = {k: ctx.gather(f"['layers'][{k!r}]", w, stacked=True) for k, w in lp.items()}
     lp = dequantize_layer(lp, x.dtype)
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -140,10 +167,10 @@ def _decoder_layer(cfg: LlamaConfig, attn_impl: str, x: torch.Tensor, lp: dict,
 
 def hidden_states(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
                   attn_impl: str = "auto", remat_policy=None,
-                  remat: bool = False) -> torch.Tensor:
+                  remat: bool = False, ctx: ShardCtx = _NO_CTX) -> torch.Tensor:
     """[B, S] int tokens -> [B, S, D] final (post-norm) hidden states."""
-    x = params["embed"][input_ids.long()]
-    layer = partial(_decoder_layer, cfg, attn_impl)
+    x = ctx.gather("['embed']", params["embed"])[input_ids.long()]
+    layer = partial(_decoder_layer, cfg, attn_impl, ctx=ctx)
     ckpt = {} if remat_policy is None else {"context_fn": remat_policy}
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in params["layers"].items()}
@@ -151,26 +178,27 @@ def hidden_states(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
             x = checkpoint(layer, x, lp, use_reentrant=False, **ckpt)
         else:
             x = layer(x, lp)
-    return rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
+    return rmsnorm(x, ctx.gather("['final_norm']", params["final_norm"]), cfg.rms_norm_eps)
 
 
 def forward(cfg: LlamaConfig, params: dict, input_ids: torch.Tensor,
             attn_impl: str = "auto", remat_policy=None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, ctx: ShardCtx = _NO_CTX) -> torch.Tensor:
     """[B, S] int tokens -> [B, S, V] logits."""
     x = hidden_states(cfg, params, input_ids, attn_impl=attn_impl,
-                      remat_policy=remat_policy, remat=remat)
-    return x @ lm_head(cfg, params, x.dtype)
+                      remat_policy=remat_policy, remat=remat, ctx=ctx)
+    return x @ lm_head(cfg, params, x.dtype, ctx)
 
 
 def loss_fn(cfg: LlamaConfig, params: dict, batch: dict, generator=None,
-            attn_impl: str = "auto", remat_policy=None, remat: bool = False):
+            attn_impl: str = "auto", remat_policy=None, remat: bool = False,
+            ctx: ShardCtx = _NO_CTX):
     """Next-token loss of ``batch["input_ids"]`` (``batch["labels"]`` when
     given). ``generator`` is the JAX loss's rng, which this model does not
     draw from."""
     del generator
     logits = forward(cfg, params, batch["input_ids"], attn_impl=attn_impl,
-                     remat_policy=remat_policy, remat=remat)
+                     remat_policy=remat_policy, remat=remat, ctx=ctx)
     return causal_lm_loss(logits, batch["input_ids"], batch.get("labels"))
 
 
@@ -307,8 +335,13 @@ def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
 
 def build(cfg: LlamaConfig, remat: bool = False, remat_policy=None) -> ModelSpec:
     """The model's spec; ``remat`` and ``remat_policy`` (a ``context_fn`` or
-    None) select activation checkpointing of each decoder layer."""
-    ckpt = dict(remat=remat, remat_policy=remat_policy)
+    None) select activation checkpointing of each decoder layer. Each call
+    makes the spec its own ``ShardCtx``."""
+    ctx = ShardCtx()
+    ckpt = dict(remat=remat, remat_policy=remat_policy, ctx=ctx)
+    axes = dict(PARAM_LOGICAL_AXES)
+    if cfg.tie_embeddings:
+        axes = {k: v for k, v in axes.items() if k != "lm_head"}
     return ModelSpec(
         name="llama",
         config=cfg,
@@ -322,4 +355,6 @@ def build(cfg: LlamaConfig, remat: bool = False, remat_policy=None) -> ModelSpec
         init_paged_cache_fn=partial(init_paged_cache, cfg),
         ragged_forward_fn=partial(ragged_forward, cfg),
         supports_prefill_tiles=True,
+        param_logical_axes=axes,
+        shard_ctx=ctx,
     )

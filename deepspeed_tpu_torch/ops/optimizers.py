@@ -26,6 +26,10 @@ from deepspeed_tpu_torch.config.config import OptimizerConfig, is_onebit_family
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # keystr of the state's place in the JAX package's optax chain (the
+    # checkpoint's leaf keys): "[0]" for adamw, sgd and adam without decay,
+    # "[1][0]" for adam behind add_decayed_weights
+    state_prefix: str = "[0]"
 
 
 class ScaleByAdamState(NamedTuple):
@@ -103,7 +107,7 @@ def adam_l2(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             grads = torch._foreach_add(grads, params, alpha=weight_decay)
         return inner.update(grads, state, params)
 
-    return GradientTransformation(inner.init, update)
+    return GradientTransformation(inner.init, update, "[1][0]" if weight_decay else "[0]")
 
 
 def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False) -> GradientTransformation:
@@ -158,7 +162,7 @@ def build_optimizer(cfg: OptimizerConfig, learning_rate: float | None = None
     if is_onebit_family(t):
         raise NotImplementedError(
             f"optimizer {cfg.type!r} belongs to the compressed-communication family, "
-            "not ported yet (ROADMAP.md queue 1 item 10)")
+            "not ported yet (ROADMAP.md queue 1 item 10, second part)")
     raise ValueError(f"unsupported optimizer type {cfg.type!r}")
 
 

@@ -9,6 +9,7 @@ features this slice has not ported, naming their ROADMAP item.
 
 from functools import partial
 
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -120,11 +121,11 @@ def test_compute_dtype(section, want):
 
 
 @pytest.mark.parametrize("section,item", [
-    ({"zero_optimization": {"stage": 1}}, "item 10"),
+    ({"zero_optimization": {"grad_overlap": {"enabled": True}}}, "item 10"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "item 13"),
     ({"telemetry": {"enabled": True}}, "item 14"),
     ({"sequence_parallel": {"tiled_logits": True}}, "item 12"),
-    ({"mesh": {"data": 2}}, "item 10"),
+    ({"sentinel": {"enabled": True}}, "item 10"),
     ({"optimizer": {"type": "lion"}}, "item 15"),
     ({"optimizer": {"type": "onebit_adam"}}, "item 10"),
 ])
@@ -133,3 +134,18 @@ def test_engine_refuses_unported_features(section, item):
     with pytest.raises(NotImplementedError, match=item):
         initialize(model=partial(llama.build, llama.LlamaConfig.tiny()), config=cfg,
                    device="cpu")
+
+
+def test_mesh_larger_than_the_world_raises_like_jax():
+    """``{"mesh": {"data": 2}}`` in a one-process run: the topology's
+    ``ValueError``, with the JAX builder's message."""
+    from deepspeed_tpu.comm.topology import MeshTopology as JaxMeshTopology
+
+    with pytest.raises(ValueError) as want:
+        JaxMeshTopology.build(jcfg.load_config({"mesh": {"data": 2}}).mesh,
+                              devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as got:
+        initialize(model=partial(llama.build, llama.LlamaConfig.tiny()),
+                   config={"train_micro_batch_size_per_device": 1, "mesh": {"data": 2}},
+                   device="cpu")
+    assert str(got.value) == str(want.value)

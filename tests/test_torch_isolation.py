@@ -48,6 +48,14 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.serving.router",
     "deepspeed_tpu_torch.serving.frontend",
     "deepspeed_tpu_torch.serving.cluster",
+    "deepspeed_tpu_torch.comm.topology",
+    "deepspeed_tpu_torch.comm.comm",
+    "deepspeed_tpu_torch.utils.comms_logging",
+    "deepspeed_tpu_torch.parallel.partition",
+    "deepspeed_tpu_torch.checkpoint.serialization",
+    "deepspeed_tpu_torch.checkpoint.sharded",
+    "deepspeed_tpu_torch.checkpoint.engine",
+    "deepspeed_tpu_torch.utils.tensor_fragment",
 )
 
 _PROBE = """
