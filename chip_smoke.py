@@ -21,7 +21,8 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    their share of the pair's flops); then ``head_dims``: all five kernels
    against their plain versions at head dims 16, 80, 96, 256, 264, 384,
    512, 1032 and 2048 in fp32 and bf16 (above 1024 the wide kernels' rows
-   in a global workspace; at 2048 also timed, for information), and a few
+   in a global workspace, the flash kernels there at S = 320 instead of
+   1000; at 2048 also timed, for information), and a few
    training steps of ``LlamaConfig.tiny()`` (head dim 16) through the flash
    kernels;
 4. engine: 32 requests x 48 greedy tokens through ``put()`` and
@@ -143,6 +144,18 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    the kernels vs through the plain attention path in fp32 (2 layers,
    full width, B=1, S=2048), and the gradients' relative error in bf16 at
    4 layers;
+7a. train_fbs: the training cell at GAS 2 (two micro-batches of 1 x
+   4096): 2 steps through ``backward`` x 2 + ``step`` and 2 through
+   ``train_batch`` from the same init: losses and every master bit for bit;
+   ms a step each way, ``forward``'s eval loss;
+7b. hybrid: ``HybridEngine`` on the training cell, one ``train_batch``, then
+   greedy ``generate`` and seeded rollouts: tokens equal a dense engine
+   given ``eval_params`` (sharing them), one cast for the step;
+7c. learn: ``bench.py:learn_trial_main``'s accelerator config (vocab 256,
+   hidden 384, 6 layers, head dim 64, 32 x 512, 50 steps, WarmupLR) on the
+   bytes of ``deepspeed_tpu/**/*.py`` with the sentinel on, then off:
+   ``learn_pass``, 0 anomalies, losses bitwise equal, the same host reads a
+   step both ways;
 8. train_zero: the training cell at ZeRO stages 0, 1, 2 and 3 under a
    one-rank NCCL group on cuda:0 (``bench.py:173-176``'s ``mfu_zero3`` on
    one card), 4 batches each: stages 1-3 against stage 0's losses and grad
@@ -155,13 +168,35 @@ compute over fp32 masters, AdamW, micro-batch 2 x 4096 tokens). In order:
    one fragment of the newer tag is cut short; a fresh stage-0 engine loads
    the directory, walks the ladder past the corrupt tag to the older one,
    and its next 2 losses equal the continuous run's bit for bit; bytes
-   written, save, verify and load seconds.
+   written, save, verify and load seconds. The batches come from a
+   ``CheckpointableLoader``; the older tag stays for 10 and 11;
+10. sentinel: a stage-0 engine with the sentinel (``warmup_steps`` 3) loads
+   that tag, takes nan-grads at ``train.grads`` and a poisoned batch at
+   ``data.batch``: one quarantine, one rollback (a verified full-width
+   load) and the replay, whose stitched losses equal a clean sentinel run
+   pre-seeded with the quarantine, bit for bit; rollback seconds;
+11. serve_from_checkpoint: ``InferenceEngine(checkpoint=)`` in bf16 and woq8
+   on the tag: greedy tokens equal engines built from ``zero_to_fp32``'s
+   arrays; load seconds and bytes on the device; a 1-layer
+   ``HybridEngine`` loads the tag (its cast redone) and its tokens equal
+   the bf16 engine's;
+12. train_chaos: ``bench.py:_train_chaos_impl``'s legs at its worker config
+   (the worker: ``deepspeed_tpu_torch/runtime/chaos.py``; all but the
+   pipeline leg), started before 9 and run beside 9-11 (whose lines then
+   carry ``beside_train_chaos``; ``--train-chaos-after`` runs them after 11
+   instead), each leg a thread, its workers
+   processes on the card using the libraries built in 2: the uninterrupted
+   reference, kills at four checkpoint seams, a timer kill and
+   ``corrupt-bytes`` at load, the elastic agent from world 2 to 1, the
+   sentinel leg and the wedge leg; every check of ``bench.py:2848-2866``
+   but the two ``pipe_*`` ones, and the seconds from each restart to its
+   first new step.
 
 Each phase prints one JSON line. The script ends with a ``{"kernels": ...}``
 line and, as its last line, ``{"ok": true, "device": {...}}``; any failure
 exits nonzero without that line. Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--train-chaos-after]
 """
 
 from __future__ import annotations
@@ -171,10 +206,15 @@ import dataclasses
 import gc
 import json
 import os
+import random
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 import traceback
+import warnings
 from functools import lru_cache, partial
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
@@ -210,10 +250,14 @@ FB, FS, FD = TRAIN_BATCH, TRAIN_SEQ, D
 _START = time.perf_counter()
 
 
+# set while the kill-and-resume legs run: every line printed then says so
+BESIDE: dict = {}
+
+
 def emit(phase: str, **fields) -> None:
     """One phase's JSON line; ``t_s``: seconds since the script started."""
-    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _START}),
-          flush=True)
+    print(json.dumps({"phase": phase, **fields, **BESIDE,
+                      "t_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi(*query: str) -> str:
@@ -300,12 +344,20 @@ class PowerSampler:
 
 
 # ------------------------------------------------------------ kernel cases
+def _normal(shape, seed: int):
+    """fp32 standard normals drawn on the card: at head dim 2048 a pool is
+    302M values, which numpy took tens of seconds to draw."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device="cuda")
+
+
 @lru_cache(maxsize=1)
 def _decode_arrays(np, d: int):
-    """decode_case's host arrays at head dim d, its K, V and Q as float32
-    (the float64 draws rounded once, as the cast to a device dtype rounds
-    them): the head-dim checks reuse them across dtypes instead of drawing
-    gigabytes again (4.7 GB of float64 a call at d = 2048)."""
+    """decode_case's arrays at head dim d, K, V and Q as fp32 tensors on the
+    card (a device dtype's cast rounds them once): the head-dim checks reuse
+    them across dtypes."""
     rng = np.random.default_rng(0)
     pos = [0, 30, 31, 32, 33, 63, 64, 95, 96, 127, 128, 159, 160, 255, 256, 257,
            300, 383, 384, 400, 447, 448, 500, 511, 512, 530, 558, 559]
@@ -317,9 +369,8 @@ def _decode_arrays(np, d: int):
             bt[s, j] = next(perm)
     slots = list(range(len(pos))) + [max_seqs] * 4
     pos = pos + [0] * 4
-    kp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
-    vp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
-    q = rng.normal(size=(len(pos), HQ, d)).astype(np.float32)
+    kp, vp = _normal((NB, BS, HKV, d), 10), _normal((NB, BS, HKV, d), 11)
+    q = _normal((len(pos), HQ, d), 12)
     return q, kp, vp, slots, pos, bt
 
 
@@ -328,11 +379,10 @@ def decode_case(torch, np, dtype, d=D):
     edges, each in its own slot with blocks drawn from a permutation of the
     pool, plus 4 padding tokens (slot max_seqs, position 0); head dim d."""
     q, kp, vp, slots, pos, bt = _decode_arrays(np, d)
-    f = dict(dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
-    return (torch.from_numpy(q).to(**f), torch.from_numpy(kp).to(**f),
-            torch.from_numpy(vp).to(**f), torch.tensor(slots, **i32), torch.tensor(pos, **i32),
-            torch.tensor(bt, **i32))
+    return (q.to(dtype, copy=True), kp.to(dtype, copy=True), vp.to(dtype, copy=True),
+            torch.tensor(slots, **i32),
+            torch.tensor(pos, **i32), torch.tensor(bt, **i32))
 
 
 PREFILL_TILES = [(0, 0, 128), (0, 128, 128), (0, 256, 128), (0, 384, 128),
@@ -341,17 +391,16 @@ PREFILL_TILES = [(0, 0, 128), (0, 128, 128), (0, 256, 128), (0, 384, 128),
 
 @lru_cache(maxsize=1)
 def _prefill_arrays(np, d: int):
-    """prefill_case's host arrays at head dim d (float32, as _decode_arrays)."""
+    """prefill_case's arrays at head dim d (fp32 on the card, as _decode_arrays)."""
     rng = np.random.default_rng(1)
-    ct, max_seqs = 128, 32
+    max_seqs = 32
     bt = np.zeros((max_seqs + 1, MB), np.int32)
     perm = iter(rng.permutation(np.arange(1, NB)))
     for s, length in ((0, 512), (1, 228), (2, 64)):
         for j in range(-(-length // BS)):
             bt[s, j] = next(perm)
-    kp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
-    vp = rng.normal(size=(NB, BS, HKV, d)).astype(np.float32)
-    q = rng.normal(size=(len(PREFILL_TILES) * ct, HQ, d)).astype(np.float32)
+    kp, vp = _normal((NB, BS, HKV, d), 20), _normal((NB, BS, HKV, d), 21)
+    q = _normal((len(PREFILL_TILES) * 128, HQ, d), 22)
     return q, kp, vp, bt
 
 
@@ -360,11 +409,10 @@ def prefill_case(torch, np, dtype, d=D):
     token prompt (4 tiles), a 228-token prompt (pad rows), a 64-token prompt
     (pad rows) and one all-pad tile (slot max_seqs = 32); head dim d."""
     q, kp, vp, bt = _prefill_arrays(np, d)
-    f = dict(dtype=dtype, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
     meta = [torch.tensor(c, **i32) for c in zip(*PREFILL_TILES)]
-    return (torch.from_numpy(q).to(**f), torch.from_numpy(kp).to(**f),
-            torch.from_numpy(vp).to(**f), *meta, torch.tensor(bt, **i32)), 128
+    return (q.to(dtype, copy=True), kp.to(dtype, copy=True), vp.to(dtype, copy=True), *meta,
+            torch.tensor(bt, **i32)), 128
 
 
 def decode_work(args):
@@ -3337,14 +3385,41 @@ def train_zero_phase(torch, np, llama, engine_mod, fa) -> dict:
     return per_step
 
 
-def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
+def ckpt_batch(np, vocab: int, i: int) -> dict:
+    """Batch ``i`` of the checkpoint cell's deterministic stream."""
+    rng = np.random.default_rng(6000 + i)
+    return {"input_ids": rng.integers(0, vocab, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)}
+
+
+def ckpt_loader(np, vocab: int):
+    """The stream as a ``CheckpointableLoader``: its position rides the
+    manifest, and the sentinel's quarantine skips its batches."""
+    from deepspeed_tpu_torch.runtime.dataloader import CheckpointableLoader
+
+    def factory(skip):
+        def gen():
+            i = skip
+            while True:
+                yield ckpt_batch(np, vocab, i)
+                i += 1
+        return gen()
+
+    return CheckpointableLoader(factory)
+
+
+def checkpoint_phase(torch, np, llama, engine_mod, fa):
     """Save at stage 3 under a one-rank NCCL group, load into a fresh stage-0
     engine through the fallback ladder past a corrupt newer tag, and resume:
-    the resumed losses equal the continuous run's bitwise."""
+    the resumed losses equal the continuous run's bitwise. The batches come
+    from ``ckpt_loader``, whose position the tags carry. Returns the
+    launches, the save dir and the verified older tag, which the sentinel
+    and serve-from-checkpoint phases read (the corrupt tag is removed and
+    ``latest`` names the older one); the caller removes the dir."""
     import shutil
     import tempfile
 
     from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.checkpoint import engine as ckpt
 
     cfg = train_cfg(llama, CKPT_LAYERS)
     nparams = llama.num_params(cfg)
@@ -3355,21 +3430,22 @@ def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
         raise AssertionError(f"checkpoint: {free} bytes free under {root}, the phase "
                              f"writes {need}")
     save_dir = tempfile.mkdtemp(prefix="dstpu-ckpt-chip-smoke-", dir=root)
-    batches = zero_batches(np, cfg.vocab_size, 4, seed=6)
     launches = {k: 0 for k in flash_counts(fa)}
+    ok = False
     nccl_group(torch)
     try:
         gc.collect()
         torch.cuda.empty_cache()
         fa.reset_counts()
         eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
-                                             config=zero_config(3), seed=0)
-        first = [float(eng.train_batch(b)) for b in batches[:2]]
+                                             config=zero_config(3), seed=0,
+                                             training_data=ckpt_loader(np, cfg.vocab_size))
+        first = [float(eng.train_batch()) for _ in range(2)]
         t0 = time.perf_counter()
         older = eng.save_checkpoint(save_dir)
         save_s = time.perf_counter() - t0
         written = sum(os.path.getsize(os.path.join(older, f)) for f in os.listdir(older))
-        continuous = [float(eng.train_batch(b)) for b in batches[2:]]
+        continuous = [float(eng.train_batch()) for _ in range(2)]
         newer = eng.save_checkpoint(save_dir)
         eng.destroy()
         del eng
@@ -3382,7 +3458,8 @@ def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
         with open(victim, "r+b") as f:
             f.truncate(size - min(1 << 20, size // 2))
         fresh, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
-                                               config=zero_config(0), seed=1)
+                                               config=zero_config(0), seed=1,
+                                               training_data=ckpt_loader(np, cfg.vocab_size))
         telemetry.TELEMETRY.reset()
         telemetry.configure(enabled=True)
         try:
@@ -3400,15 +3477,20 @@ def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
         finally:
             telemetry.TELEMETRY.reset()
         before_resume = flash_counts(fa)
-        resumed = [float(fresh.train_batch(b)) for b in batches[2:]]
+        resumed = [float(fresh.train_batch()) for _ in range(2)]
         after_resume = flash_counts(fa)
         launches = {k: launches[k] + after_resume[k] - before_resume[k] for k in launches}
         steps = fresh.global_steps
         fresh.destroy()
         del fresh
+        # what the later phases read: the verified older tag, named by latest
+        shutil.rmtree(newer)
+        ckpt.write_latest(save_dir, os.path.basename(older))
+        ok = True
     finally:
         end_nccl_group()
-        shutil.rmtree(save_dir, ignore_errors=True)
+        if not ok:
+            shutil.rmtree(save_dir, ignore_errors=True)
     emit("checkpoint", model="llama3_8b widths", layers=CKPT_LAYERS, num_params=nparams,
          reduced="depth 32 -> 1 layer (fp32 masters + Adam mu + nu at 12 bytes a "
                  "parameter, two tags on disk at once)",
@@ -3428,7 +3510,816 @@ def checkpoint_phase(torch, np, llama, engine_mod, fa) -> dict:
         raise AssertionError(f"checkpoint: resumed {resumed} != continuous {continuous}")
     if not written >= CKPT_STATE_BYTES_PER_PARAM * nparams:
         raise AssertionError(f"checkpoint: {written} bytes written for {nparams} parameters")
+    return launches, save_dir, older
+
+
+# ------------------------- item 10, second part (a): the single-card rest
+class HostReads:
+    """Counts reads of CUDA tensors on the host (``item``, ``tolist``,
+    ``bool``, ``float``, ``int``: each waits for the device) while installed."""
+
+    NAMES = ("item", "tolist", "__bool__", "__float__", "__int__")
+
+    def __init__(self, torch):
+        self.torch, self.reads = torch, 0
+        self._orig = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+
+    def __enter__(self):
+        counter = self
+
+        def wrap(fn):
+            def read(t, *a, **k):
+                if t.is_cuda:
+                    counter.reads += 1
+                return fn(t, *a, **k)
+            return read
+
+        for n, fn in self._orig.items():
+            setattr(self.torch.Tensor, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self.torch.Tensor, n, fn)
+
+
+class DeviceSyncs:
+    """Counts the waits for the card that ``torch.cuda.set_sync_debug_mode``
+    reports (its warning "called a synchronizing CUDA operation", one a
+    wait: a read back, a copy from pageable host memory, a stream
+    synchronize) while installed, by the Python line that waited
+    (``sites``). Its other warnings are not waits: the mode's first use
+    warns once that it is a prototype. It sees waits in PyTorch's own code,
+    which ``HostReads`` does not."""
+
+    def __init__(self, torch):
+        self.torch, self.syncs, self.sites = torch, 0, {}
+
+    def __enter__(self):
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing CUDA operation" not in str(message):
+                return
+            self.syncs += 1
+            site = f"{os.path.basename(filename)}:{lineno}"
+            self.sites[site] = self.sites.get(site, 0) + 1
+
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+
+def sync_controls(torch) -> dict:
+    """``DeviceSyncs``' readings of known waits: a read back (``item``) and
+    a constant made on the host (``torch.tensor(x, device="cuda")``)."""
+    out = {}
+    for name, fn in (("item", lambda: torch.ones(1, device="cuda").item()),
+                     ("host_constant", lambda: torch.tensor(0.5, device="cuda"))):
+        with DeviceSyncs(torch) as ds:
+            fn()
+        out[name] = ds.syncs
+    return out
+
+
+def timed_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+FBS_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_device=1,
+                  gradient_accumulation_steps=2)
+FBS_STEPS = 2
+
+
+def train_fbs_phase(torch, np, llama, engine_mod, fa) -> dict:
+    """The 4-layer training cell at GAS 2 (two micro-batches of 1 x 4096):
+    two steps through ``backward`` x 2 + ``step`` and two through
+    ``train_batch`` from the same init. Gates: losses and every master equal
+    bit for bit; the flash kernels launch, the plain attention never runs."""
+    cfg = train_cfg(llama, TRAIN_LAYERS)
+    rng = np.random.default_rng(11)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (2, TRAIN_SEQ), dtype=np.int32)}
+               for _ in range(FBS_STEPS)]
+    unseen = rng.integers(0, cfg.vocab_size, (1, TRAIN_SEQ), dtype=np.int32)  # eval's row
+    runs = {}
+    for way in ("backward_step", "train_batch"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg),
+                                             config=dict(FBS_CONFIG), seed=0)
+        fa.reset_counts()
+        losses, ms = [], []
+        for b in batches:
+            if way == "train_batch":
+                loss, t = timed_ms(torch, lambda: eng.train_batch(b))
+            else:
+                def fbs():
+                    ls = [eng.backward({"input_ids": b["input_ids"][g:g + 1]}) for g in (0, 1)]
+                    if not eng.is_gradient_accumulation_boundary():
+                        raise AssertionError("train_fbs: no boundary after 2 micro-batches")
+                    eng.step()
+                    return torch.stack(ls).mean()
+                loss, t = timed_ms(torch, fbs)
+            losses.append(loss)
+            ms.append(t)
+        launches = flash_counts(fa)
+        plain = fa.flash_attention_fwd_ref.calls + fa.flash_attention_bwd_ref.calls
+        eval_loss = float(eng.forward({"input_ids": unseen}))
+        masters = {k: p.detach().clone() for k, p in named_leaves(eng.params)}  # 7.7 GB
+        runs[way] = dict(losses=[float(x) for x in losses], loss_bits=[
+            int(np.float32(float(x)).view(np.uint32)) for x in losses], step_ms=ms,
+            kernel_launches=launches, plain_version_calls=plain, eval_loss=eval_loss,
+            masters=masters, steps=eng.global_steps)
+        eng.destroy()
+        del eng
+    a, b = runs["backward_step"], runs["train_batch"]
+    differing = [k for k in a["masters"] if not torch.equal(a["masters"][k], b["masters"][k])]
+    for r in runs.values():
+        r.pop("masters")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("train_fbs", model="llama3_8b widths", layers=TRAIN_LAYERS, config=FBS_CONFIG,
+         source="deepspeed_tpu/runtime/engine.py:2355-2460", runs=runs,
+         losses_bitwise=a["loss_bits"] == b["loss_bits"], masters_differing=differing,
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if a["loss_bits"] != b["loss_bits"] or differing:
+        raise AssertionError(f"train_fbs: backward/step differs from train_batch: losses "
+                             f"{a['losses']} vs {b['losses']}, masters {differing}")
+    expected = {"flash_fwd": 4 * TRAIN_LAYERS * FBS_STEPS,
+                "flash_dkdv": 2 * TRAIN_LAYERS * FBS_STEPS,
+                "flash_dq": 2 * TRAIN_LAYERS * FBS_STEPS}
+    for way, r in runs.items():
+        if r["kernel_launches"] != expected or r["plain_version_calls"]:
+            raise AssertionError(f"train_fbs {way}: launches {r['kernel_launches']} (want "
+                                 f"{expected}), plain calls {r['plain_version_calls']}")
+    return a["kernel_launches"]
+
+
+# bench.py:learn_trial_main's accelerator config (:1041-1066)
+LEARN_MODEL = dict(vocab_size=256, hidden_size=384, intermediate_size=1024, num_layers=6,
+                   num_heads=6, num_kv_heads=6, max_seq_len=512)
+LEARN_STEPS, LEARN_BATCH, LEARN_SEQ = 50, 32, 512
+LEARN_CONFIG = {
+    "train_micro_batch_size_per_device": LEARN_BATCH, "gradient_accumulation_steps": 1,
+    "steps_per_print": 0, "gradient_clipping": 1.0, "sequence_length": LEARN_SEQ,
+    "optimizer": {"type": "adamw", "params": {"lr": 3e-4, "weight_decay": 0.01}},
+    "scheduler": {"type": "WarmupLR", "params": {"warmup_max_lr": 3e-4,
+                                                 "warmup_num_steps": 10}},
+    "mesh": {"data": -1},
+}
+
+
+def learn_corpus(np):
+    """``bench.py:1033-1040``: the bytes of ``deepspeed_tpu/**/*.py``, read
+    as files (never imported), joined by newlines, in sorted walk order."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    chunks = []
+    for root, _, files in sorted(os.walk(os.path.join(here, "deepspeed_tpu"))):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                with open(os.path.join(root, f), "rb") as fh:
+                    chunks.append(fh.read())
+    return np.frombuffer(b"\n".join(chunks), np.uint8).astype(np.int32)
+
+
+def learn_phase(torch, np, llama, engine_mod, fa) -> dict:
+    """``bench.py:learn_trial_main`` on the card: a byte-level Llama learns
+    the repository's own source, 50 steps, with the sentinel on, then the
+    same run with it off. Gates: ``learn_pass`` (final < 0.7 x initial, the
+    means of the first and last 3 losses), 0 anomalies, losses bitwise equal
+    to the sentinel-off run, the same host reads a step and the same device
+    syncs in all (``DeviceSyncs``) both ways."""
+    corpus = learn_corpus(np)
+    cfg = llama.LlamaConfig(**LEARN_MODEL)
+    starts_rng = np.random.default_rng(1)
+    starts = [starts_rng.integers(0, len(corpus) - LEARN_SEQ - 1, LEARN_BATCH)
+              for _ in range(LEARN_STEPS)]
+    batches = [{"input_ids": np.stack([corpus[s:s + LEARN_SEQ] for s in st])} for st in starts]
+    runs, launches = {}, None
+    for label, sentinel in (("sentinel_on", True), ("sentinel_off", False)):
+        config = dict(LEARN_CONFIG, sentinel={"enabled": sentinel})
+        eng, _, _, _ = engine_mod.initialize(model=partial(llama.build, cfg), config=config,
+                                             seed=0)
+        fa.reset_counts()
+        losses, ms, reads, syncs, sites = [], [], [], [], {}
+        for b in batches:
+            with HostReads(torch) as hr, DeviceSyncs(torch) as ds:
+                loss, t = timed_ms(torch, lambda: eng.train_batch(b))
+            reads.append(hr.reads)
+            syncs.append(ds.syncs)
+            for k, n in ds.sites.items():
+                sites[k] = sites.get(k, 0) + n
+            ms.append(t)
+            losses.append(float(loss))
+        if sentinel:
+            launches = flash_counts(fa)
+            anomalies = eng._sentinel.anomalies
+        plain = fa.flash_attention_fwd_ref.calls + fa.flash_attention_bwd_ref.calls
+        initial, final = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        runs[label] = dict(losses=losses, step_ms=ms, median_step_ms=float(np.median(ms[1:])),
+                           host_reads_per_step=sorted(set(reads)),
+                           device_syncs_by_step=syncs, device_syncs=sum(syncs),
+                           device_sync_sites=sites,
+                           initial=initial,
+                           final=final, learn_pass=bool(final < 0.7 * initial),
+                           plain_version_calls=plain, compute_dtype=str(eng.config.compute_dtype))
+        eng.destroy()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs["sentinel_on"], runs["sentinel_off"]
+    bitwise = on["losses"] == off["losses"]
+    controls = sync_controls(torch)
+    emit("learn", model=LEARN_MODEL, steps=LEARN_STEPS, batch=LEARN_BATCH, seq=LEARN_SEQ,
+         source="bench.py:1018-1086", corpus_bytes=int(len(corpus)), config=LEARN_CONFIG,
+         head_dim=cfg.hd, runs=runs, learn_initial_loss=on["initial"],
+         learn_final_loss=on["final"], learn_pass=on["learn_pass"], anomalies=anomalies,
+         losses_bitwise_sentinel_on_off=bitwise, kernel_launches=launches,
+         device_sync_controls=controls, nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not (on["learn_pass"] and anomalies == 0 and bitwise):
+        raise AssertionError(f"learn: pass {on['learn_pass']}, anomalies {anomalies}, "
+                             f"bitwise against sentinel off {bitwise}")
+    if on["host_reads_per_step"] != off["host_reads_per_step"]:
+        raise AssertionError(f"learn: host reads a step {on['host_reads_per_step']} with the "
+                             f"sentinel, {off['host_reads_per_step']} without")
+    # the sentinel adds no wait for the card; the counter sees a known one
+    if on["device_syncs"] != off["device_syncs"] or controls["item"] < 1:
+        raise AssertionError(f"learn: {on['device_syncs']} device syncs in {LEARN_STEPS} "
+                             f"steps with the sentinel, {off['device_syncs']} without "
+                             f"(controls {controls})")
+    if min(launches.values()) <= 0 or on["plain_version_calls"]:
+        raise AssertionError(f"learn: flash launches {launches}, plain calls "
+                             f"{on['plain_version_calls']}")
     return launches
+
+
+SENT_TOTAL = 8          # the sentinel cell's steps: from the tag's 2 to 8
+SENT_NAN_AFTER = 3      # train.grads fires on its 4th call: step 5
+SENT_POISON_BATCH = 7   # the stream's batch 7 (step 7) is poisoned
+
+
+def sentinel_config(save_dir: str, state_dir: str) -> dict:
+    """The checkpoint cell at stage 0 with the reference worker's sentinel
+    settings (``bench.py:2412-2423``): the loss gate armed after 3 steps."""
+    return dict(TRAIN_CONFIG, sentinel={
+        "enabled": True, "warmup_steps": 3, "report_dir": os.path.join(state_dir, "reports"),
+        "state_dir": state_dir, "checkpoint_dir": save_dir})
+
+
+def sentinel_phase(torch, np, llama, engine_mod, fa, save_dir: str) -> dict:
+    """Self-healing at Llama-3-8B widths, 1 layer, on the checkpoint cell's
+    tag: a stage-0 engine with the sentinel loads it (no second hash pass:
+    the checkpoint phase verified it), takes a nan-grads fault at
+    ``train.grads`` (strike 1: quarantine, the tag pinned) and a poisoned
+    batch at ``data.batch`` (strike 2: a verified full-width load, the
+    replay skipping both batches). A clean sentinel run, its quarantine
+    pre-seeded, loads the same tag. Gates: the stitched losses equal the
+    clean run's bit for bit, one quarantine and one rollback, 0 anomalies
+    in the clean run."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.runtime import sentinel as sentinel_mod
+    from deepspeed_tpu_torch.serving import faults
+
+    cfg = train_cfg(llama, CKPT_LAYERS)
+    work = tempfile.mkdtemp(prefix="dstpu-sentinel-chip-smoke-")
+    poison = sentinel_mod.batch_fingerprint(ckpt_batch(np, cfg.vocab_size, SENT_POISON_BATCH))
+    inj = faults.get_fault_injector()
+    runs = {}
+    fa.reset_counts()
+    try:
+        for label in ("chaos", "clean"):
+            state = os.path.join(work, label)
+            if label == "clean":
+                sentinel_mod.save_quarantine(state, runs["chaos"]["quarantine"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng, _, _, _ = engine_mod.initialize(
+                model=partial(llama.build, cfg), config=sentinel_config(save_dir, state),
+                seed=1, training_data=ckpt_loader(np, cfg.vocab_size))
+            _, load_ms = timed_ms(torch, lambda: eng.load_checkpoint(save_dir, verify=False))
+            if label == "chaos":
+                inj.configure([{"point": "train.grads", "kind": "nan-grads",
+                                "after": SENT_NAN_AFTER, "times": 1},
+                               {"point": "data.batch", "kind": "poison-batch",
+                                "request_id": poison, "times": 1}])
+            traj, events, ms = {}, [], []
+            try:
+                while eng.global_steps < SENT_TOTAL:
+                    step = eng.global_steps
+                    loss, t = timed_ms(torch, lambda: eng.train_batch())
+                    if eng.global_steps <= step:
+                        events.append({"rollback_from": step, "to": eng.global_steps,
+                                       "seconds": eng.last_rollback_s})
+                        continue
+                    traj[step] = float(loss)  # a replayed step overwrites its first run
+                    ms.append(t)
+            finally:
+                inj.reset()
+            runs[label] = dict(losses=[traj.get(s) for s in range(2, SENT_TOTAL)],
+                               rollbacks=events, load_s_unverified=load_ms / 1e3,
+                               step_ms=ms, anomalies=eng._sentinel.anomalies,
+                               quarantine=list(eng._sentinel.quarantined),
+                               skipped_by_loader=eng.training_dataloader.quarantined_skipped,
+                               reports=sorted(os.listdir(os.path.join(state, "reports")))
+                               if os.path.isdir(os.path.join(state, "reports")) else [])
+            eng.destroy()
+            del eng
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = flash_counts(fa)
+    chaos, clean = runs["chaos"], runs["clean"]
+    bitwise = chaos["losses"] == clean["losses"] and None not in chaos["losses"]
+    emit("sentinel", model="llama3_8b widths", layers=CKPT_LAYERS, zero_stage=0,
+         source="bench.py:2347-2423,2733-2800", steps=f"2..{SENT_TOTAL - 1} from the tag",
+         faults={"train.grads": f"nan-grads after {SENT_NAN_AFTER}",
+                 "data.batch": f"poison-batch on batch {SENT_POISON_BATCH}"},
+         runs=runs, stitched_bitwise=bitwise,
+         rollback_s=[e["seconds"] for e in chaos["rollbacks"]], kernel_launches=launches,
+         full_width_loads=3, nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not (bitwise and len(chaos["rollbacks"]) == 1 and len(chaos["quarantine"]) == 2
+            and clean["anomalies"] == 0 and chaos["anomalies"] == 2
+            and any(n.startswith("sentinel_rollback") for n in chaos["reports"])):
+        raise AssertionError(f"sentinel: stitched {chaos['losses']} vs clean "
+                             f"{clean['losses']}, rollbacks {chaos['rollbacks']}, quarantine "
+                             f"{chaos['quarantine']}, anomalies {chaos['anomalies']} / "
+                             f"{clean['anomalies']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"sentinel: flash launches {launches}")
+    return launches
+
+
+SERVE_PROMPTS, SERVE_NEW = 4, 16
+
+
+def serve_from_checkpoint_phase(torch, np, llama, dense_mod, save_dir) -> None:
+    """Serving from a training checkpoint: ``InferenceEngine(checkpoint=)``
+    in bf16 and woq8 on the checkpoint cell's tag (1 layer at Llama-3-8B
+    widths), against engines built from ``zero_to_fp32``'s arrays of the
+    same tag; then a 1-layer ``HybridEngine`` loads the tag (its cast
+    invalidated) and generates. Gates: greedy tokens equal, the cast
+    redone once after the load."""
+    from deepspeed_tpu_torch.checkpoint import zero_to_fp32
+    from deepspeed_tpu_torch.config.config import load_config
+    from deepspeed_tpu_torch.models.convert import params_from_numpy
+    from deepspeed_tpu_torch.runtime.hybrid_engine import HybridEngine
+
+    cfg = train_cfg(llama, CKPT_LAYERS)
+    spec = llama.build(cfg)
+    prompts = np.random.default_rng(12).integers(0, cfg.vocab_size, (SERVE_PROMPTS, 32),
+                                                 dtype=np.int32)
+    out, tokens = {}, {}
+    t0 = time.perf_counter()
+    arrays = zero_to_fp32.get_fp32_state_dict_from_checkpoint(save_dir)
+    z2f_s = time.perf_counter() - t0
+    nested: dict = {}
+    for name, arr in arrays.items():
+        *path, leaf = name.split(".")
+        node = nested
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    for quant in ("off", "woq8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        eng, load_ms = timed_ms(torch, lambda: dense_mod.InferenceEngine(
+            spec, dtype=torch.bfloat16, checkpoint=save_dir, quant=quant))
+        device_bytes = torch.cuda.memory_allocated() - base
+        got = eng.generate(prompts, max_new_tokens=SERVE_NEW)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = dense_mod.InferenceEngine(spec, dtype=torch.bfloat16, quant=quant,
+                                        params=params_from_numpy(nested, torch.bfloat16, "cuda"))
+        want = ref.generate(prompts, max_new_tokens=SERVE_NEW)
+        del ref
+        tokens[quant] = got
+        out[quant] = dict(load_s=load_ms / 1e3, device_bytes=device_bytes,
+                          tokens_equal=bool(np.array_equal(got, want)),
+                          in_vocab=bool(((got >= 0) & (got < cfg.vocab_size)).all()))
+    del arrays, nested
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = load_config(dict(TRAIN_CONFIG))
+    config.resolve_batch_sizes(1)
+    hyb = HybridEngine(partial(llama.build, cfg), config, seed=2)
+    hyb.generate(prompts, max_new_tokens=SERVE_NEW)  # on its own init
+    casts = hyb.eval_casts
+    hyb.load_checkpoint(save_dir, verify=False)
+    hyb_tokens = hyb.generate(prompts, max_new_tokens=SERVE_NEW)
+    hybrid = dict(casts_before_load=casts, casts_after=hyb.eval_casts,
+                  tokens_equal_dense_from_tag=bool(np.array_equal(hyb_tokens, tokens["off"])))
+    hyb.destroy()
+    del hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_from_checkpoint", model="llama3_8b widths", layers=CKPT_LAYERS,
+         dtype="bfloat16", prompts=[SERVE_PROMPTS, 32], new_tokens=SERVE_NEW,
+         source="deepspeed_tpu/inference/engine.py:134-171", zero_to_fp32_s=z2f_s,
+         engines=out, hybrid_load=hybrid, nvidia_smi=nvidia_smi("name", "power.limit"))
+    bad = {q: r for q, r in out.items() if not (r["tokens_equal"] and r["in_vocab"])}
+    if bad or hybrid["casts_after"] != casts + 1 or not hybrid["tokens_equal_dense_from_tag"]:
+        raise AssertionError(f"serve_from_checkpoint: {bad or out}, hybrid {hybrid}")
+
+
+HYBRID_PROMPTS, HYBRID_NEW = 4, 16
+
+
+def hybrid_phase(torch, np, llama, dense_mod) -> None:
+    """``HybridEngine`` on the 4-layer training cell: one ``train_batch``,
+    then greedy ``generate`` (twice) and seeded rollouts. Gates: tokens equal
+    a dense engine given ``eval_params``; one cast for the step."""
+    from deepspeed_tpu_torch.config.config import load_config
+    from deepspeed_tpu_torch.runtime.hybrid_engine import HybridEngine
+
+    cfg = train_cfg(llama, TRAIN_LAYERS)
+    config = load_config(dict(TRAIN_CONFIG))
+    config.resolve_batch_sizes(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb = HybridEngine(partial(llama.build, cfg), config, seed=0)
+    rng = np.random.default_rng(13)
+    loss = float(hyb.train_batch({"input_ids": rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)}))
+    prompts = rng.integers(0, cfg.vocab_size, (HYBRID_PROMPTS, 64), dtype=np.int32)
+    (full, lps), first_ms = timed_ms(torch, lambda: hyb.generate(
+        prompts, max_new_tokens=HYBRID_NEW, return_logprobs=True))
+    again, repeat_ms = timed_ms(torch, lambda: hyb.generate(prompts, max_new_tokens=HYBRID_NEW))
+    rolls = hyb.generate_rollouts(list(prompts[:2]) + [prompts[2, :48]], rollout_batch_size=2,
+                                  max_new_tokens=8, temperature=0.8, seed=5)
+    casts = hyb.eval_casts
+    dense = dense_mod.InferenceEngine(llama.build(cfg), dtype=torch.bfloat16,
+                                      params=hyb.eval_params)
+    want = dense.generate(prompts, max_new_tokens=HYBRID_NEW)
+    shared = all(dense.params["layers"][k].data_ptr() == v.data_ptr()
+                 for k, v in hyb.eval_params["layers"].items())
+    captures = hyb.programs.captures
+    del dense
+    hyb.destroy()
+    del hyb
+    gc.collect()
+    torch.cuda.empty_cache()
+    equal = bool(np.array_equal(full, want) and np.array_equal(again, full))
+    emit("hybrid", model="llama3_8b widths", layers=TRAIN_LAYERS, loss=loss,
+         source="deepspeed_tpu/runtime/hybrid_engine.py", prompts=[HYBRID_PROMPTS, 64],
+         new_tokens=HYBRID_NEW, first_generate_ms=first_ms, repeat_generate_ms=repeat_ms,
+         eval_casts=casts, graph_captures=captures, tokens_equal_dense=equal,
+         dense_shares_eval_params=shared, logprobs_finite=bool(np.isfinite(lps).all()),
+         rollout_lengths=[len(r["tokens"]) for r in rolls],
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if not (equal and casts == 1 and shared and np.isfinite(lps).all()
+            and [len(r["tokens"]) for r in rolls] == [8, 8, 8]):
+        raise AssertionError(f"hybrid: tokens equal {equal}, casts {casts}, shared {shared}")
+
+
+# bench.py:_train_chaos_impl's legs, all but the pipeline one (ROADMAP.md
+# queue 1 item 12): each a thread, its workers (runtime/chaos.py's worker as
+# ``python -m deepspeed_tpu_torch.runtime.chaos``) processes one after another
+CHAOS_LEGS = ("reference", "kills", "elastic", "sentinel", "wedge")
+
+
+class ChaosLegs:
+    """The legs' state: the worker module, its launches and their timing."""
+
+    def __init__(self, root: str, seed: int, device):
+        from deepspeed_tpu_torch.runtime import chaos
+
+        self.chaos, self.root, self.seed, self.device = chaos, root, seed, device
+        self.repo = os.path.dirname(os.path.abspath(__file__))
+
+    def env(self, work_dir, faults=None, sentinel=False, total=None, save_every=2) -> dict:
+        c = self.chaos
+        env = dict(os.environ)
+        env["PYTHONPATH"] = self.repo + (os.pathsep + env["PYTHONPATH"]
+                                         if env.get("PYTHONPATH") else "")
+        env.update(CHAOS_DIR=work_dir, CHAOS_TOTAL_STEPS=str(total or c.TOTAL_STEPS),
+                   CHAOS_SAVE_EVERY=str(save_every), CHAOS_SEED=str(self.seed),
+                   CHAOS_FAULTS=json.dumps(faults or []))
+        env.pop("CHAOS_SENTINEL", None)
+        # a worker is a world of its own: never a rank of the caller's group
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        if sentinel:
+            env["CHAOS_SENTINEL"] = "1"
+        if self.device is not None:
+            env["CHAOS_DEVICE"] = str(self.device)
+        return env
+
+    def cmd(self) -> list:
+        return [sys.executable, "-m", "deepspeed_tpu_torch.runtime.chaos"]
+
+    def run(self, work_dir, label, faults=None, kill_after=None, **env_kw) -> int:
+        """One worker run; the exit code (negative: a signal)."""
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, f"{label}.log"), "ab") as log:
+            proc = subprocess.Popen(self.cmd(), env=self.env(work_dir, faults, **env_kw),
+                                    stdout=log, stderr=log, cwd=self.repo)
+            try:
+                if kill_after is not None:
+                    try:
+                        proc.wait(timeout=kill_after)
+                    except subprocess.TimeoutExpired:
+                        proc.send_signal(signal.SIGKILL)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return proc.returncode
+
+
+def _reference_leg(L: ChaosLegs) -> dict:
+    c = L.chaos
+    d = os.path.join(L.root, "ref")
+    rc = L.run(d, "ref")
+    traj = {r["step"]: r["loss"] for r in c.read_jsonl(os.path.join(d, "trajectory.jsonl"))}
+    return {"rc": rc, "trajectory": traj}
+
+
+def _kill_leg(L: ChaosLegs) -> dict:
+    rng = random.Random(L.seed)
+    d = os.path.join(L.root, "chaos")
+    attempts = [
+        ("kill@ckpt.flush", [{"point": "ckpt.flush", "kind": "kill",
+                              "after": 3 + rng.randrange(3)}], None),
+        ("kill@ckpt.collect", [{"point": "ckpt.collect", "kind": "kill", "after": 1}], None),
+        ("kill@ckpt.commit", [{"point": "ckpt.commit", "kind": "kill",
+                               "after": rng.randrange(2)}], None),
+        ("kill@ckpt.latest", [{"point": "ckpt.latest", "kind": "kill",
+                               "after": rng.randrange(2)}], None),
+        ("kill@timer", None, 4.0 + 6.0 * rng.random()),
+        ("corrupt@ckpt.load", [{"point": "ckpt.load", "kind": "corrupt-bytes",
+                                "times": 1}], None),
+    ]
+    runs, kills = [], []
+    for i, (label, faults, kill_after) in enumerate(attempts):
+        rc = L.run(d, f"attempt{i}", faults=faults, kill_after=kill_after)
+        runs.append({"label": label, "rc": rc})
+        if rc is not None and rc < 0:
+            kills.append(label)
+    extra = 0
+    while runs[-1]["rc"] != 0 and extra < 5:
+        extra += 1
+        runs.append({"label": f"clean{extra}", "rc": L.run(d, f"extra{extra}")})
+    return {"runs": runs, "kills": kills, "dir": d}
+
+
+def _elastic_leg(L: ChaosLegs) -> dict:
+    from deepspeed_tpu_torch.elasticity.agent import ElasticAgent, WorkerSpec
+
+    d = os.path.join(L.root, "elastic")
+    os.makedirs(d, exist_ok=True)
+
+    def make_worker(rank, world):
+        if rank == 0:
+            return WorkerSpec(cmd=L.cmd(), env=L.env(d))
+        # a slot that is evicted once: at the smaller world it is never filled again
+        return WorkerSpec(cmd=[sys.executable, "-c",
+                               "import time,sys; time.sleep(6); sys.exit(3)"])
+
+    agent = ElasticAgent(target_batch_size=4, micro_batch_candidates=[2, 4],
+                         make_worker=make_worker, max_world_size=2, min_world_size=1,
+                         poll_interval=0.3, max_restarts=3)
+    rc = agent.run()
+    return {"rc": rc, "restarts": agent.restarts, "world": agent.world_size, "dir": d}
+
+
+def _sentinel_leg(L: ChaosLegs) -> dict:
+    from deepspeed_tpu_torch.runtime import sentinel as sentinel_mod
+
+    c = L.chaos
+    poison_fp = sentinel_mod.batch_fingerprint(c.batch_for(10))
+    chaos = os.path.join(L.root, "sent_chaos")
+    rc = L.run(chaos, "sent_chaos", faults=[
+        {"point": "train.grads", "kind": "nan-grads", "after": 6, "times": 1},
+        {"point": "data.batch", "kind": "poison-batch", "request_id": poison_fp, "times": 1},
+    ], sentinel=True, total=c.SENT_TOTAL, save_every=c.SENT_SAVE)
+    quarantine = sentinel_mod.load_quarantine(os.path.join(chaos, "state"))
+    ref = os.path.join(L.root, "sent_ref")
+    os.makedirs(os.path.join(ref, "state"), exist_ok=True)
+    sentinel_mod.save_quarantine(os.path.join(ref, "state"), quarantine)
+    ref_rc = L.run(ref, "sent_ref", sentinel=True, total=c.SENT_TOTAL,
+                   save_every=c.SENT_SAVE)
+    return {"rc": rc, "ref_rc": ref_rc, "chaos": chaos, "ref": ref, "quarantine": quarantine}
+
+
+def _wedge_leg(L: ChaosLegs) -> dict:
+    from deepspeed_tpu_torch.elasticity.agent import ElasticAgent, WorkerSpec
+
+    c = L.chaos
+    d = os.path.join(L.root, "wedge")
+    os.makedirs(d, exist_ok=True)
+    armed = {"first": True}
+
+    def make_worker(rank, world):
+        faults = []
+        if armed["first"]:  # only the first incarnation: the relaunch runs clean
+            armed["first"] = False
+            faults = [{"point": "train.dispatch", "kind": "wedge", "delay_s": 600.0,
+                       "after": 4, "times": 1}]
+        return WorkerSpec(cmd=L.cmd(), env=L.env(d, faults, sentinel=True, total=c.WEDGE_TOTAL,
+                                                save_every=c.WEDGE_SAVE))
+
+    agent = ElasticAgent(target_batch_size=4, micro_batch_candidates=[2, 4],
+                         make_worker=make_worker, max_world_size=1, min_world_size=1,
+                         poll_interval=0.5, max_restarts=3,
+                         heartbeat_dir=os.path.join(d, "state"), heartbeat_timeout=5.0,
+                         heartbeat_grace=60.0)
+    rc = agent.run()
+    return {"rc": rc, "restarts": agent.restarts, "kills": agent.heartbeat_kills, "dir": d}
+
+
+_LEG_FNS = {"reference": _reference_leg, "kills": _kill_leg, "elastic": _elastic_leg,
+            "sentinel": _sentinel_leg, "wedge": _wedge_leg}
+
+
+def _max_rel(got: dict, want: dict, steps) -> float:
+    worst = 0.0
+    for s in steps:
+        a, b = got.get(s), want.get(s)
+        if a is None or b is None or a != a or b != b:
+            return float("inf")
+        worst = max(worst, abs(a - b) / max(1e-12, abs(b)))
+    return worst
+
+
+def train_chaos_legs(root: str, device=None, seed: int = 0) -> dict:
+    """Run the legs at once (a thread each) under ``root``; returns
+    ``{"ok", "checks", "seconds", "recover_*", ...}``. The work dirs are
+    removed when every check holds."""
+    # the legs' imports, before their threads start: a first import of torch
+    # from several threads at once can abort the process
+    import deepspeed_tpu_torch.elasticity.agent  # noqa: F401
+    import deepspeed_tpu_torch.runtime.sentinel  # noqa: F401
+
+    L = ChaosLegs(root, seed, device)
+    c, legs = L.chaos, CHAOS_LEGS
+    total_steps = c.TOTAL_STEPS
+    os.makedirs(root, exist_ok=True)
+    results, errors, seconds = {}, {}, {}
+
+    def run_leg(name):
+        t0 = time.perf_counter()
+        try:
+            results[name] = _LEG_FNS[name](L)
+        except Exception as e:  # noqa: BLE001 - a failed leg fails its checks
+            errors[name] = f"{type(e).__name__}: {e}"
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run_leg, args=(n,), name=f"chaos-{n}") for n in legs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+    checks: dict = {}
+    out: dict = {"legs": list(legs), "errors": errors, "seconds": seconds}
+    reference = results.get("reference", {}).get("trajectory", {})
+    if "reference" in legs:
+        checks["reference_complete"] = (results.get("reference", {}).get("rc") == 0
+                                        and len(reference) == total_steps)
+    if "kills" in legs:
+        r = results.get("kills")
+        if r is None:
+            checks["completed"] = False
+        else:
+            status = c.read_jsonl(os.path.join(r["dir"], "status.jsonl"))
+            saves = [s for s in status if s["event"] == "saved"]
+            resumes = [s for s in status if s["event"] == "resume"]
+            fresh = [s for s in status if s["event"] == "fresh"]
+            exhausted = [s for s in status if s["event"] == "exhausted"]
+            first_save_at = status.index(saves[0]) if saves else len(status)
+            late_fresh = [s for s in fresh if status.index(s) > first_save_at]
+            completed = r["runs"][-1]["rc"] == 0
+            fallbacks = [s for s in resumes if s.get("latest") and s.get("tag") != s.get("latest")]
+            by_step: dict = {}
+            for rec in c.read_jsonl(os.path.join(r["dir"], "trajectory.jsonl")):
+                by_step.setdefault(rec["step"], []).append(rec["loss"])
+            full = sorted(by_step) == list(range(total_steps))
+            max_rel = max((_max_rel({0: v}, {0: reference.get(s)}, [0])
+                           for s, vs in by_step.items() for v in vs), default=float("inf"))
+            out["recover_kills"] = c.recoveries(r["dir"])
+            checks.update(completed=completed,
+                          always_loadable=completed and not late_fresh and not exhausted,
+                          kills_ge_3=len(r["kills"]) >= 3,
+                          killed_mid_commit="kill@ckpt.commit" in r["kills"],
+                          full_coverage=full, trajectory_parity=full and max_rel <= 1e-5,
+                          fallback_observed=bool(fallbacks))
+            out.update(runs=r["runs"], kills=r["kills"], saves=len(saves),
+                       resumes=len(resumes), fallbacks=len(fallbacks), max_rel_loss_diff=max_rel)
+    if "elastic" in legs:
+        r = results.get("elastic")
+        if r is None:
+            checks.update(elastic_ok=False, elastic_world_reduced=False)
+        else:
+            traj = c.read_jsonl(os.path.join(r["dir"], "trajectory.jsonl"))
+            parity = all(abs(x["loss"] - reference[x["step"]])
+                         <= 1e-5 * max(1e-12, abs(reference[x["step"]]))
+                         for x in traj if x["step"] in reference)
+            checks["elastic_ok"] = (r["rc"] == 0 and {x["step"] for x in traj}
+                                    == set(range(total_steps)) and parity and bool(reference))
+            checks["elastic_world_reduced"] = r["world"] == 1
+            out.update(elastic_agent_rc=r["rc"], elastic_agent_restarts=r["restarts"],
+                       elastic_agent_world=r["world"], recover_elastic=c.recoveries(r["dir"]))
+    if "sentinel" in legs:
+        r = results.get("sentinel")
+        if r is None:
+            checks.update(sentinel_self_heals=False, sentinel_quarantined_two=False,
+                          sentinel_one_rollback=False, sentinel_stitched_parity=False,
+                          sentinel_forensics=False)
+        else:
+            status = c.read_jsonl(os.path.join(r["chaos"], "status.jsonl"))
+            rollbacks = [s for s in status if s["event"] == "rollback"]
+            chaos_last = {x["step"]: x["loss"]
+                          for x in c.read_jsonl(os.path.join(r["chaos"], "trajectory.jsonl"))}
+            ref_last = {x["step"]: x["loss"]
+                        for x in c.read_jsonl(os.path.join(r["ref"], "trajectory.jsonl"))}
+            max_rel = _max_rel(chaos_last, ref_last, range(c.SENT_TOTAL))
+            bitwise = all(chaos_last.get(s) == ref_last.get(s) for s in range(c.SENT_TOTAL))
+            rdir = os.path.join(r["chaos"], "reports")
+            reports = sorted(os.listdir(rdir)) if os.path.isdir(rdir) else []
+            checks.update(
+                sentinel_self_heals=r["rc"] == 0 and any(s["event"] == "done" for s in status),
+                sentinel_quarantined_two=len(r["quarantine"]) == 2,
+                sentinel_one_rollback=len(rollbacks) == 1,
+                sentinel_stitched_parity=(r["ref_rc"] == 0 and set(chaos_last)
+                                          == set(range(c.SENT_TOTAL)) and max_rel <= 1e-5),
+                sentinel_forensics=any(n.startswith("sentinel_rollback") for n in reports))
+            out.update(sentinel_rollbacks=len(rollbacks), sentinel_quarantined=r["quarantine"],
+                       sentinel_reports=reports, sentinel_max_rel_loss_diff=max_rel,
+                       sentinel_stitched_bitwise=bitwise,
+                       sentinel_rollback_s=[s.get("seconds") for s in rollbacks])
+    if "wedge" in legs:
+        r = results.get("wedge")
+        if r is None:
+            checks["wedge_heartbeat_kill"] = False
+        else:
+            status = c.read_jsonl(os.path.join(r["dir"], "status.jsonl"))
+            checks["wedge_heartbeat_kill"] = (r["rc"] == 0 and r["kills"] >= 1
+                                              and r["restarts"] >= 1
+                                              and any(s["event"] == "done" for s in status))
+            out.update(wedge_heartbeat_kills=r["kills"], wedge_agent_rc=r["rc"],
+                       wedge_agent_restarts=r["restarts"], recover_wedge=c.recoveries(r["dir"]))
+    out["checks"] = checks
+    out["ok"] = bool(checks) and all(checks.values()) and not errors
+    if out["ok"]:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def train_chaos_start():
+    """The legs on the card in a thread, using the libraries built above.
+    Returns the thread, the dict it fills and the ``t_s`` it started at;
+    until ``train_chaos_finish`` every phase line carries
+    ``beside_train_chaos``."""
+    import tempfile
+
+    result: dict = {}
+    root = tempfile.mkdtemp(prefix="dstpu-train-chaos-chip-smoke-")
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            result.update(train_chaos_legs(root, seed=0))
+        except Exception as e:  # noqa: BLE001 - reported by train_chaos_finish
+            result["error"] = f"{type(e).__name__}: {e}"
+        result["wall_s"] = time.perf_counter() - t0
+        result["root"] = root
+
+    started_t_s = time.perf_counter() - _START
+    thread = threading.Thread(target=run, name="train-chaos")
+    thread.start()
+    BESIDE["beside_train_chaos"] = True
+    return thread, result, started_t_s
+
+
+def train_chaos_finish(thread, result, started_t_s: float) -> None:
+    """Wait for the legs, print their line, gate every check."""
+    thread.join(timeout=600)
+    BESIDE.clear()
+    emit("train_chaos", source="bench.py:2347-2880", started_at_t_s=started_t_s,
+         worker_config="hidden 32, 1 layer, vocab 97, seq 32, batch 4, 10 steps, save every 2",
+         left_out="the pipeline leg (pipe_stage_killed, pipe_stitched_parity): ROADMAP.md "
+                  "queue 1 item 12", alive_after_600_s=thread.is_alive(),
+         **{k: v for k, v in result.items() if k != "root"},
+         nvidia_smi=nvidia_smi("name", "power.limit"))
+    if thread.is_alive() or not result.get("ok"):
+        failed = sorted(k for k, v in result.get("checks", {}).items() if not v)
+        raise AssertionError(f"train_chaos: failed checks {failed}, errors "
+                             f"{result.get('errors')} {result.get('error')} (work dir "
+                             f"{result.get('root')})")
+    shutil.rmtree(result["root"], ignore_errors=True)
 
 
 # ------------------------------------------------- the HTTP serving tier
@@ -4072,9 +4963,29 @@ def main() -> int:
     # 6. the training path, and 7. its parity
     launches.update(train_phase(torch, np, llama, engine_mod, fa))
     train_parity_phase(torch, np, llama, engine_mod)
-    # 8. ZeRO stages 1-3 against stage 0, and 9. checkpoints, both under NCCL
+    # 7a. forward / backward / step against train_batch, 7b. the hybrid
+    # engine, 7c. bench.py's learn trial with the sentinel on and off
+    fbs_launches = train_fbs_phase(torch, np, llama, engine_mod, fa)
+    hybrid_phase(torch, np, llama, dense_mod)
+    learn_launches = learn_phase(torch, np, llama, engine_mod, fa)
+    # 8. ZeRO stages 1-3 against stage 0, and 9. checkpoints, both under NCCL;
+    # the kill-and-resume legs (12) run beside 9-11 in processes of their own,
+    # or after 11 with --train-chaos-after (9-11's seconds then the card's alone)
     zero_launches = train_zero_phase(torch, np, llama, engine_mod, fa)
-    ckpt_launches = checkpoint_phase(torch, np, llama, engine_mod, fa)
+    legs = None if "--train-chaos-after" in sys.argv[1:] else train_chaos_start()
+    try:
+        ckpt_launches, save_dir, _ = checkpoint_phase(torch, np, llama, engine_mod, fa)
+        try:
+            # 10. self-healing on the checkpoint's tag, 11. serving from it
+            sentinel_launches = sentinel_phase(torch, np, llama, engine_mod, fa, save_dir)
+            serve_from_checkpoint_phase(torch, np, llama, dense_mod, save_dir)
+        finally:
+            shutil.rmtree(save_dir, ignore_errors=True)
+    finally:
+        if legs is not None:
+            train_chaos_finish(*legs)
+    if legs is None:
+        train_chaos_finish(*train_chaos_start())
 
     csrc = "deepspeed_tpu_torch/ops/cuda/csrc/"
     sources = {"paged_decode": (csrc + "paged_decode.cu",
@@ -4109,6 +5020,9 @@ def main() -> int:
                             launches_train_zero_per_step={
                                 str(stage): c.get(name) for stage, c in zero_launches.items()},
                             launches_checkpoint=ckpt_launches.get(name),
+                            launches_train_fbs=fbs_launches.get(name),
+                            launches_learn=learn_launches.get(name),
+                            launches_sentinel=sentinel_launches.get(name),
                             max_abs_err=t["max_abs_err"],
                             max_abs_err_fp32=t["max_abs_err_fp32"],
                             **({"max_abs_err_verify_batch": verify_errs}

@@ -11,7 +11,9 @@ with the reference's exact threefry draws. Training:
 ``initialize`` -> ``Engine.train_batch`` (AdamW/Adam/SGD with optax
 semantics, bf16 compute over fp32 masters, clipping, activation
 checkpointing), data parallel over ``torch.distributed`` with ZeRO stages
-0-3, and checkpoints in the JAX package's format, with the
+0-3, checkpoints in the JAX package's format (a dense engine serves from
+one), the forward / backward / step protocol, the self-healing sentinel,
+the elastic agent and the hybrid engine, with the
 flash-attention forward, dK/dV and dQ kernels. Every kernel is written by hand in CUDA for Hopper (``ops/cuda``).
 
 Exports load lazily so ``import deepspeed_tpu_torch`` stays cheap.
@@ -26,6 +28,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "initialize": ("deepspeed_tpu_torch.runtime.engine", "initialize"),
     "Engine": ("deepspeed_tpu_torch.runtime.engine", "Engine"),
+    "HybridEngine": ("deepspeed_tpu_torch.runtime.hybrid_engine", "HybridEngine"),
     "load_config": ("deepspeed_tpu_torch.config.config", "load_config"),
     "RaggedConfig": ("deepspeed_tpu_torch.inference.ragged", "RaggedConfig"),
     "RaggedInferenceEngine": ("deepspeed_tpu_torch.inference.ragged",

@@ -26,9 +26,10 @@ never by mtime) to walk on corruption. The checkpoint seams fire the fault
 points ``serving/faults.py`` names (``ckpt.commit``, ``ckpt.latest`` here;
 ``ckpt.collect``, ``ckpt.flush`` and ``ckpt.load`` in the engine).
 
-The JAX package's legacy single-file layout (``CheckpointEngine``) is not
-ported: the port writes and reads the sharded format only. Two differences
-of method, none of format: files are fsynced and hashed one thread a file,
+The port writes the sharded format only; it reads the JAX package's
+legacy single-file layout too (``CheckpointEngine``'s ``model.npz``, in
+:func:`model_tree` and the training engine). Two differences of method,
+none of format: files are fsynced and hashed one thread a file,
 and ``verify_checkpoint`` checks every file's presence and size before it
 hashes any, so a truncated file fails without a hash pass (the reference
 goes file by file; with several corruptions at once the two can name
@@ -46,6 +47,7 @@ import shutil
 from concurrent.futures import ThreadPoolExecutor
 
 from deepspeed_tpu_torch.checkpoint import serialization as ser
+from deepspeed_tpu_torch.checkpoint import sharded
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 MANIFEST = "manifest.json"
@@ -94,6 +96,21 @@ def latest_tag(save_dir: str) -> str | None:
             f"latest pointer holds garbage ({tag[:64]!r}); ignoring")
         return None
     return tag
+
+
+def model_tree(ckpt_dir: str, tag: str | None = None):
+    """Yield ``(keystr, full array)`` of every leaf of a tag's ``model``
+    tree, one leaf at a time: of ``tag``, else of the ``latest`` pointer's,
+    else of ``ckpt_dir`` itself; sharded (``sharded.assemble_full``: a leaf
+    that is one fragment comes memory-mapped) or the legacy ``model.npz``.
+    The readers of a whole model (``zero_to_fp32``, the inference engine's
+    load) go through here."""
+    tag = tag or latest_tag(ckpt_dir)
+    base = os.path.join(ckpt_dir, tag) if tag else ckpt_dir
+    if sharded.is_sharded(base, "model"):
+        yield from sharded.assemble_full(base, "model")
+        return
+    yield from ser.iter_arrays(os.path.join(base, "model.npz"))
 
 
 def write_latest(save_dir: str, tag: str) -> None:

@@ -85,6 +85,19 @@ def arrays_to_tree(template: Any, arrays: dict[str, np.ndarray], strict: bool = 
     return type(template)(arr.item()) if np.ndim(template) == 0 else arr
 
 
+def iter_arrays(path: str) -> Iterator[tuple[str, np.ndarray]]:
+    """``(keystr, array)`` of each member of one ``.npz`` of keystr-named
+    arrays (the legacy single-file layout), read one at a time; ``/`` is
+    unescaped as the JAX package escapes it."""
+    with np.load(path, allow_pickle=False) as z:
+        for k in z.files:
+            yield k.replace("\\slash ", "/"), z[k]
+
+
+def load_arrays(path: str) -> dict[str, np.ndarray]:
+    return dict(iter_arrays(path))
+
+
 def fsync_file(path: str) -> None:
     """fsync an already-written file by path (durability barrier)."""
     fd = os.open(path, os.O_RDONLY)

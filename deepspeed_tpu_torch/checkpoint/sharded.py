@@ -34,7 +34,7 @@ import numpy as np
 from deepspeed_tpu_torch.checkpoint.serialization import to_numpy
 
 __all__ = ["collect_fragments", "write_fragments", "finalize_index", "load_sharded",
-           "is_sharded"]
+           "assemble_full", "is_sharded"]
 
 
 def _member(key: str, i: int) -> str:
@@ -175,6 +175,17 @@ def _map_member(path: str, info: zipfile.ZipInfo) -> np.ndarray:
 def read_index(ckpt_dir: str, name: str) -> dict:
     with open(os.path.join(ckpt_dir, f"{name}.index.json")) as f:
         return json.load(f)
+
+
+def assemble_full(ckpt_dir: str, name: str, dtype=None):
+    """Yield ``(key, full array)`` of every leaf of a sharded tree, one leaf
+    materialized at a time (``zero_to_fp32``, the inference engine's load).
+    ``dtype``: the arrays' dtype, else the index's."""
+    index = read_index(ckpt_dir, name)
+    for key, meta in index.items():
+        shape = tuple(meta["shape"])
+        yield key, load_sharded([(key, shape, [[0, d] for d in shape],
+                                  dtype or np.dtype(meta["dtype"]))], ckpt_dir, name)[key]
 
 
 def load_sharded(targets: list, ckpt_dir: str, name: str, strict: bool = True) -> dict:

@@ -22,19 +22,26 @@ a layer at a time inside the programs. A KV codec in ``quant`` applies to
 the paged pool of ``RaggedInferenceEngine`` and is inert here, as is
 ``qcol`` on one device; both are logged.
 
+``checkpoint=`` (or ``load_checkpoint``) loads the model tree of a
+training checkpoint (the ``latest`` tag's, sharded or legacy, written by
+either package) leaf by leaf, in slices along the first dimension, straight
+into the inference dtype on the device: no fp32 copy of the model exists on
+the device or the host. A WOQ engine loads dense weights and quantizes them.
+
 Not ported yet, and refused: tensor parallelism (``ROADMAP.md`` queue 1
-item 12) and checkpoint loading (item 10). The telemetry span waits for
-item 14.
+item 12). The telemetry span waits for item 14.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator.real_accelerator import resolve_device
+from deepspeed_tpu_torch.checkpoint import serialization as ser
 from deepspeed_tpu_torch.inference import kvquant
 from deepspeed_tpu_torch.inference.cuda_graphs import ProgramCache
 from deepspeed_tpu_torch.inference.ragged import cast_params
@@ -120,17 +127,15 @@ class InferenceEngine:
             raise NotImplementedError(
                 "tensor-parallel inference (mp_size > 1) is not ported yet: "
                 "ROADMAP.md queue 1 item 12 (parallelism beyond ZeRO)")
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet: ROADMAP.md queue 1 item 10 "
-                "(multi-GPU training and checkpoints)")
         parsed = kvquant.parse_quant(quant)
         self.device = resolve_device(device)
         self.spec = model
         if self.spec.decode_fn is None or self.spec.init_cache_fn is None:
             raise ValueError(f"model {self.spec.name} has no decode/cache support")
         self.dtype = dtype
-        if params is None:
+        if checkpoint is not None:
+            params = load_model_tree(checkpoint, self._template(), dtype, self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.spec.init_fn(gen, dtype, self.device)
         self.params = cast_params(params, dtype, self.device)
@@ -141,19 +146,32 @@ class InferenceEngine:
             log_dist("InferenceEngine: quant '+qcol' quantizes tensor-parallel collectives; "
                      "one device has none, so it is ignored", ranks=[0])
         self.quantize_bits = int(quantize_bits) or parsed.woq_bits
+        self._quantize_block = quantize_block
         if self.quantize_bits:
-            self.params = quantize_params(self.params, bits=self.quantize_bits,
-                                          block=quantize_block, skip=tuple(self.spec.woq_skip))
+            self.params = self._quantize(self.params)
         self.programs = ProgramCache(self.device)
         self._gen_cache: dict = {}
         log_dist(f"InferenceEngine: model={self.spec.name} device={self.device} "
                  f"dtype={str(dtype).replace('torch.', '')}"
                  + (f" woq=int{self.quantize_bits}" if self.quantize_bits else ""), ranks=[0])
 
+    def _quantize(self, params):
+        return quantize_params(params, bits=self.quantize_bits, block=self._quantize_block,
+                               skip=tuple(self.spec.woq_skip))
+
+    def _template(self):
+        """The model's leaves as meta tensors: shapes, no memory."""
+        return self.spec.init_fn(None, self.dtype, torch.device("meta"))
+
     def load_checkpoint(self, ckpt_dir: str) -> None:
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet: ROADMAP.md queue 1 item 10 "
-            "(multi-GPU training and checkpoints)")
+        """Load the model tree saved by ``Engine.save_checkpoint`` (either
+        package; sharded or legacy) into new weights in the inference dtype
+        (``engine.py:134``); a WOQ engine quantizes them. The programs built
+        so far referred to the old weights and are dropped."""
+        params = load_model_tree(ckpt_dir, self._template(), self.dtype, self.device)
+        self.params = self._quantize(params) if self.quantize_bits else params
+        self.programs = ProgramCache(self.device)
+        self._gen_cache = {}
 
     def generate(self, input_ids, max_new_tokens: int = 64, temperature: float = 0.0,
                  seed: int = 0, top_k: int = 0, top_p: float = 1.0,
@@ -192,6 +210,51 @@ class InferenceEngine:
                                     torch.as_tensor(np.asarray(input_ids), device=self.device))
 
     __call__ = forward
+
+
+_KEY_PART = re.compile(r"\['([^']*)'\]")
+_LOAD_SLICE_BYTES = 64 << 20  # a leaf crosses to the device in slices of about this
+
+
+def load_model_tree(ckpt_dir: str, template, dtype: torch.dtype, device) -> dict:
+    """The ``model`` tree of the ``latest`` tag under ``ckpt_dir`` (or of
+    ``ckpt_dir`` itself; ``checkpoint.engine.model_tree`` reads it a leaf at
+    a time), as new tensors in ``dtype`` on ``device`` shaped and keyed as
+    ``template`` (a tree of tensors, meta ones do). Each leaf is copied in
+    slices along its first dimension, each slice cast on the way in: no fp32
+    copy of the whole model is made."""
+    from deepspeed_tpu_torch.checkpoint import engine as ckpt
+
+    want = dict(ser.flatten_with_keys(template))
+    loaded: dict = {}
+    for key, arr in ckpt.model_tree(ckpt_dir):
+        leaf = want.get(key)
+        if leaf is None:
+            continue
+        shape = tuple(leaf.shape)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"checkpoint leaf {key} shape {tuple(arr.shape)} != "
+                             f"expected {shape}")
+        t = torch.empty(shape, dtype=dtype if leaf.is_floating_point() else leaf.dtype,
+                        device=device)
+        if arr.ndim == 0:
+            t.copy_(torch.tensor(arr.item()))
+        else:
+            rows = max(1, _LOAD_SLICE_BYTES // max(1, arr[0].nbytes))
+            for i in range(0, shape[0], rows):
+                t[i:i + rows].copy_(torch.from_numpy(np.array(arr[i:i + rows])))
+        loaded[key] = t
+        del arr
+    out: dict = {}
+    for key in want:  # the template's order
+        if key not in loaded:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        node = out
+        path = _KEY_PART.findall(key)
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = loaded[key]
+    return out
 
 
 _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp16": torch.float16,

@@ -30,11 +30,26 @@ where the model uses it (``_GatherShard``: all-gather in the forward,
 reduce-scatter of the gradient in the backward), a layer's weights inside
 its checkpointed function, so the recompute gathers again.
 
+``backward(batch)`` runs one micro-batch of the same loop into the same
+gradient buffers (the masters' ``.grad``, laid out as the ZeRO plan lays
+the masters) and ``step()`` runs the same ``_update`` at the accumulation
+boundary, so ``backward`` x GAS + ``step`` is ``train_batch`` bit for bit;
+``forward`` is the eval loss.
+
+The sentinel (``runtime/sentinel.py``, ``config.sentinel``) folds its
+anomaly verdict into ``_update``: the step's one host sync reads the
+verdict instead of the finite flag, and an anomalous step skips like an
+overflow. Its host side quarantines batches, rolls back to a checkpoint
+and replays, halts with forensics, fences a step under the dispatch
+watchdog and beats the heartbeat. The fault points ``train.grads``,
+``data.batch`` and ``train.dispatch`` fire in ``train_batch``.
+
 Checkpoints (``save_checkpoint`` / ``load_checkpoint``) are the JAX
 package's format and protocol (``checkpoint/``): either package loads the
-other's, at any world size and stage. Features this slice has not ported
-raise ``NotImplementedError`` naming their ROADMAP item; the dataloader
-module, the FLOPs profiler and telemetry's training spans are not ported.
+other's, at any world size and stage, and a legacy single-file tag
+(``model.npz``) loads too. Features this slice has not ported raise
+``NotImplementedError`` naming their ROADMAP item; the FLOPs profiler and
+telemetry's training spans are not ported.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.ops.optimizers import base_lr, build_optimizer
 from deepspeed_tpu_torch.parallel.partition import plan_sharding
 from deepspeed_tpu_torch.runtime import precision
+from deepspeed_tpu_torch.runtime import sentinel as sentinel_mod
 from deepspeed_tpu_torch.runtime.lr_schedules import LRScheduler, build_schedule
 from deepspeed_tpu_torch.utils import prng
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -114,7 +130,6 @@ def _unported(cfg: Config) -> list[tuple[str, str]]:
         (z.grad_overlap.enabled, "zero_optimization.grad_overlap", multi),
         (z.quantized_gradients or z.quantized_weights,
          "ZeRO++ qgZ / qwZ (quantized_gradients, quantized_weights)", multi),
-        (cfg.sentinel.enabled, "sentinel", multi),
         (any(n > 1 for n in model_axes),
          "a tensor, sequence, expert or pipeline mesh axis above 1", beyond),
         (z.offload_optimizer.device != "none" or z.offload_param.device != "none",
@@ -256,7 +271,7 @@ class Engine:
         self._train_rng = prng.prng_key(seed + 1)
         self._rng = prng.prng_key(seed + 2)
         self._last_metrics: dict = {}
-        self._acc_grads = None  # the forward/backward protocol's (not ported)
+        self._acc_count = 0  # micro-batches backward() has accumulated
         self._ckpt_writer = None
         self._ckpt_writer_error = None
         self._destroyed = False
@@ -268,6 +283,7 @@ class Engine:
             self.tput_timer.flops_per_sample = (
                 self.model_spec.flops_per_token(config.sequence_length)
                 * config.sequence_length)
+        self._init_sentinel()
         log_dist(f"engine: zero_stage={self.zero_stage} mesh {self.topo.describe()}, "
                  f"{sum(lp.state_sharded for lp in self._lplan)} of {len(self._lplan)} "
                  "leaves sharded", ranks=[0])
@@ -310,19 +326,10 @@ class Engine:
         return out
 
     def _rank_weights(self, batch: dict) -> list[float]:
-        """Each micro-batch's weight of this rank's loss: its share of the
-        micro-batch's target tokens, so the sum over ranks of the weighted
-        means is the global micro-batch's mean."""
-        dp, slot = self.topo.dp_world_size, self.topo.batch_index()
-        out = []
-        for g in range(self.gas):
-            rows = {k: np.asarray(v).reshape((self.gas, -1) + np.shape(v)[1:])[g]
-                    for k, v in batch.items() if k in ("input_ids", "labels")}
-            mb = next(iter(rows.values())).shape[0] // dp
-            total = _target_count(rows)
-            mine = _target_count({k: v[slot * mb:(slot + 1) * mb] for k, v in rows.items()})
-            out.append(mine / total if total else 1.0 / dp)
-        return out
+        """Each micro-batch's weight of this rank's loss (``_micro_weight``)."""
+        return [self._micro_weight({k: np.asarray(v).reshape((self.gas, -1) + np.shape(v)[1:])[g]
+                                    for k, v in batch.items() if k in ("input_ids", "labels")})
+                for g in range(self.gas)]
 
     def _gather_hook(self, key: str, w: torch.Tensor, stacked: bool) -> torch.Tensor:
         lp = self.plan.leaves[key]
@@ -343,24 +350,33 @@ class Engine:
 
         return _map_tree(self.params, cast)
 
-    def _gas_grads(self, batch: dict, weights: list[float]) -> torch.Tensor:
-        """Scaled, weighted loss backward per micro-batch; fp32 gradients
-        accumulate in the masters' ``.grad``. Returns this rank's weighted
-        micro-batch losses [GAS]."""
-        scale = self.scale_state.scale
+    def _install_gather(self) -> None:
         ctx = self.model_spec.shard_ctx
         if ctx is not None:
             # installed per step, as the spec may serve another engine too
             ctx.param_gather = self._gather_hook if self.zero_stage >= 3 else None
+
+    def _micro_grads(self, mb: dict, weight: float) -> torch.Tensor:
+        """One micro-batch's scaled, weighted loss backward into the masters'
+        ``.grad`` (fp32, summed over micro-batches); returns this rank's
+        weighted loss. A ``__loss_mult__`` row (the fault directives)
+        multiplies the loss inside the tape, so the gradients blow up too."""
+        mb = dict(mb)
+        mult = mb.pop("__loss_mult__", None)
+        loss = self.model_spec.loss_fn(self._compute_params(), mb)
+        if mult is not None:
+            loss = loss * mult.reshape(-1)[0]
+        (loss * (self.scale_state.scale * weight)).backward()
+        return loss.detach() * weight
+
+    def _gas_grads(self, batch: dict, weights: list[float]) -> torch.Tensor:
+        """``_micro_grads`` over the GAS micro-batches; returns this rank's
+        weighted micro-batch losses [GAS]."""
+        self._install_gather()
         for p in self._leaves:
             p.grad = None
-        losses = []
-        for g in range(self.gas):
-            mb = {k: v[g] for k, v in batch.items()}
-            loss = self.model_spec.loss_fn(self._compute_params(), mb)
-            (loss * (scale * weights[g])).backward()
-            losses.append(loss.detach() * weights[g])
-        return torch.stack(losses)
+        return torch.stack([self._micro_grads({k: v[g] for k, v in batch.items()}, weights[g])
+                            for g in range(self.gas)])
 
     @torch.no_grad()
     def _reduce_grads(self) -> list:
@@ -382,7 +398,11 @@ class Engine:
         return grads
 
     @torch.no_grad()
-    def _update(self, grads: list, n_micro: float, step: int) -> dict:
+    def _update(self, grads: list, n_micro: float, step: int, loss=None) -> dict:
+        """The optimizer step's tail (``engine.py:1000``). With the sentinel on
+        and the step's ``loss`` given, the anomaly verdict gates the update
+        in place of the finite flag, and the one host read takes the flag,
+        the verdict, its reason and streak together."""
         cfg = self.config
         scale = self.scale_state.scale
         torch._foreach_div_(grads, scale * n_micro)
@@ -403,15 +423,31 @@ class Engine:
             torch._foreach_mul_(grads, torch.clamp(
                 cfg.gradient_clipping / (gnorm + 1e-6), max=1.0))
         lr = self.lr_schedule(step)
-        skipped = not bool(finite)  # the step's one host sync
-        if not skipped:
+        if self._lr_scale != 1.0:  # the sentinel's third-strike backoff, in fp32
+            lr = float(np.float32(lr) * np.float32(self._lr_scale))
+        metrics = {"grad_norm": gnorm, "lr": lr, "loss_scale": scale}
+        if self._sent_state is not None and loss is not None:
+            self._sent_state, anomaly, reason, streak = sentinel_mod.verdict(
+                self._sent_state, loss, gnorm, finite, cfg.sentinel)
+            # the step's one host sync
+            ok, anomalous, reason, streak = torch.stack(
+                [finite.int(), anomaly.int(), reason, streak]).tolist()
+            finite_host, apply = bool(ok), not anomalous
+            metrics.update(anomalous=bool(anomalous), anomaly_reason=reason,
+                           skip_streak=streak)
+        else:
+            finite_host = bool(finite)  # the step's one host sync
+            apply = finite_host
+        if apply:
             updates, self.opt_state = self.optimizer.update(grads, self.opt_state,
                                                             self._update_views)
             torch._foreach_mul_(updates, lr)
             torch._foreach_add_(self._update_views, updates)
             self._gather_masters()
+        # the scaler keys on the finite flag: fp16 is its business, not the sentinel's
         self.scale_state = precision.update_loss_scale(self.scale_state, finite, cfg.fp16)
-        return {"grad_norm": gnorm, "lr": lr, "loss_scale": scale, "skipped": skipped}
+        metrics["skipped"] = not finite_host
+        return metrics
 
     def _gather_masters(self) -> None:
         """Stages 1-2: every rank's updated blocks back into the full masters."""
@@ -424,7 +460,9 @@ class Engine:
     def train_batch(self, batch: dict | None = None, data_iter: Iterator | None = None):
         """One optimizer step over GAS micro-batches of the global batch
         (every rank passes the same one); returns the mean micro-batch loss
-        of the global batch as a 0-d tensor."""
+        of the global batch as a 0-d tensor. With the sentinel on, an
+        anomalous step may roll the engine back to a checkpoint (then
+        ``global_steps`` goes back; a wedged step returns NaN)."""
         if batch is None:
             if data_iter is None:
                 if self.training_dataloader is None:
@@ -432,19 +470,121 @@ class Engine:
                 data_iter = self.training_dataloader
             micro = [next(data_iter) for _ in range(self.gas)]
             batch = {k: np.concatenate([np.asarray(m[k]) for m in micro]) for k in micro[0]}
+        inj = self._fault_injector
+        if self._sentinel is not None or inj.enabled:
+            batch = self._sentinel_pre_step(batch)
         dev_batch = self._put_gas_batch(batch)
         weights = self._rank_weights(batch)
         self.tput_timer.start()
         losses = comm.all_reduce(self._gas_grads(dev_batch, weights), BATCH)
         loss = losses.mean()
-        metrics = self._update(self._reduce_grads(), float(self.gas), self.global_steps)
+        metrics = self._update(self._reduce_grads(), float(self.gas), self.global_steps,
+                               loss=loss)
         for p in self._leaves:
             p.grad = None
         metrics["loss"] = loss
+        if self._sentinel is not None and self._watchdog_timeout > 0:
+            # fence this step under the deadline: the seam, then the device
+            try:
+                sentinel_mod.watched_call(
+                    lambda: (inj.fire(self._faults.POINT_TRAIN_DISPATCH), self._fence()),
+                    self._watchdog_timeout)
+            except sentinel_mod.TrainingWedgeError as e:
+                return self._handle_wedge(e)
+        elif inj.enabled:
+            inj.fire(self._faults.POINT_TRAIN_DISPATCH)
         self.tput_timer.stop(global_step=True)
         self._after_step(metrics)
         self.micro_steps += self.gas
+        if self._sentinel is not None:
+            # after the counters: a rollback here restores them from the manifest
+            self._sentinel_post_step()
         return loss
+
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------ forward / backward / step
+    def _put_microbatch(self, batch: dict) -> dict:
+        """One global micro-batch [mb * dp, ...] -> this rank's rows on the device."""
+        dp, slot = self.topo.dp_world_size, self.topo.batch_index()
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.asarray(v))
+            if t.shape[0] % dp:
+                raise ValueError(f"batch dim {t.shape[0]} not divisible by DP world {dp} "
+                                 f"for '{k}'")
+            mb = t.shape[0] // dp
+            out[k] = t[slot * mb:(slot + 1) * mb].to(self.device)
+        return out
+
+    def _micro_weight(self, batch: dict) -> float:
+        """This rank's share of one global micro-batch's target tokens: the
+        sum over ranks of the weighted means is the micro-batch's mean."""
+        dp, slot = self.topo.dp_world_size, self.topo.batch_index()
+        rows = {k: np.asarray(v) for k, v in batch.items() if k in ("input_ids", "labels")}
+        mb = next(iter(rows.values())).shape[0] // dp
+        total = _target_count(rows)
+        mine = _target_count({k: v[slot * mb:(slot + 1) * mb] for k, v in rows.items()})
+        return mine / total if total else 1.0 / dp
+
+    def _next_rng(self) -> torch.Tensor:
+        """``jax.random.split`` of the engine's key (partitionable threefry:
+        the halves are ``fold_in(key, 0)`` and ``fold_in(key, 1)``)."""
+        self._rng, sub = prng.fold_in(self._rng, 0), prng.fold_in(self._rng, 1)
+        return sub
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The eval loss of one global micro-batch, no gradients
+        (``engine.py:2361``): each rank's loss weighted by its share of the
+        target tokens, summed over ranks."""
+        self._next_rng()
+        self._install_gather()
+        loss = self.model_spec.loss_fn(self._compute_params(), self._put_microbatch(batch))
+        return comm.all_reduce(loss.float() * self._micro_weight(batch), BATCH)
+
+    eval_batch = forward
+
+    def backward(self, batch: dict) -> torch.Tensor:
+        """Accumulate the gradients of one global micro-batch
+        (``engine.py:2370``) into the masters' ``.grad``, where ``train_batch``
+        accumulates them; ``step()`` consumes them. Returns the micro-batch's
+        loss (unscaled)."""
+        z, cfg = self.config.zero_optimization, self.config
+        if (z.offload_optimizer.device == "nvme" or z.quantized_gradients or z.zenflow.enabled
+                or z.grad_overlap.enabled or cfg.progressive_layer_drop.enabled
+                or bool(cfg.compression_training)):
+            raise NotImplementedError(
+                "the fwd/bwd/step parity path does not support NVMe-offloaded "
+                "optimizer state, quantized gradient reduction, zenflow, "
+                "grad_overlap, progressive layer drop, or compression "
+                "training; use train_batch()")
+        if self._acc_count == 0:
+            self._install_gather()
+            for p in self._leaves:
+                p.grad = None
+        self._next_rng()
+        loss = self._micro_grads(self._put_microbatch(batch), self._micro_weight(batch))
+        self._acc_count += 1
+        self.micro_steps += 1
+        return comm.all_reduce(loss, BATCH)
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._acc_count >= self.gas
+
+    def step(self) -> None:
+        """At the accumulation boundary, the optimizer step over the
+        accumulated gradients (``engine.py:2434``): ``train_batch``'s
+        ``_update`` and ``_after_step``. Before it, nothing."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        metrics = self._update(self._reduce_grads(), float(self._acc_count), self.global_steps)
+        for p in self._leaves:
+            p.grad = None
+        self._acc_count = 0
+        self._after_step(metrics)
 
     def _after_step(self, metrics: dict) -> None:
         self.global_steps += 1
@@ -456,10 +596,195 @@ class Engine:
             log_dist(f"step {self.global_steps}: overflow, skipping update "
                      f"(loss_scale -> {self.loss_scale})", ranks=[0])
         if self.config.steps_per_print and self.global_steps % self.config.steps_per_print == 0:
+            loss = metrics.get("loss")
+            loss_str = f"loss={float(loss):.4f} " if loss is not None else ""
             skip = f"skipped={self.skipped_steps} " if self.skipped_steps else ""
-            log_dist(f"step={self.global_steps} loss={float(metrics['loss']):.4f} "
+            log_dist(f"step={self.global_steps} {loss_str}"
                      f"lr={metrics['lr']:.3e} grad_norm={float(metrics['grad_norm']):.3f} "
                      f"{skip}", ranks=[0])
+        if self._heartbeat is not None:
+            # here, on the training thread at the step boundary, never from a
+            # helper thread: a wedged step must stop the beat
+            self._heartbeat.beat(self.global_steps)
+
+    # ------------------------------------------------------------- sentinel
+    def _init_sentinel(self) -> None:
+        """Self-healing training (``engine.py:796``): off by default."""
+        from deepspeed_tpu_torch.serving import faults
+
+        cfg = self.config.sentinel
+        self._faults = faults
+        self._fault_injector = faults.get_fault_injector()
+        self._sentinel = None
+        self._sent_state = None
+        self._heartbeat = None
+        self._lr_scale = 1.0
+        self._watchdog_timeout = 0.0
+        self._last_batch_fps: list[str] = []
+        self._last_save_dir: str | None = None
+        self.train_rollbacks = 0
+        if not cfg.enabled:
+            return
+        self._sentinel = sentinel_mod.SentinelPolicy(cfg)
+        self._sent_state = sentinel_mod.init_state(cfg, self.device)
+        self._watchdog_timeout = float(cfg.dispatch_timeout_s)
+        if cfg.state_dir:
+            rank = int(os.environ.get("RANK", self.rank))
+            self._heartbeat = sentinel_mod.Heartbeat(cfg.state_dir, rank=rank,
+                                                     interval_s=cfg.heartbeat_interval_s)
+        self._apply_quarantine_to_loader()
+        log_dist(f"sentinel: loss EMA+{cfg.loss_sigma_k:g}sigma / grad q{cfg.grad_quantile:g}"
+                 f"x{cfg.grad_quantile_mult:g} gates, window {cfg.window_steps} steps, third "
+                 f"strike -> {cfg.on_third_strike}"
+                 + (f", dispatch watchdog {self._watchdog_timeout:g}s"
+                    if self._watchdog_timeout else "")
+                 + (f", {len(self._sentinel.quarantined)} quarantined fingerprint(s) restored"
+                    if self._sentinel.quarantined else ""), ranks=[0])
+
+    def _sentinel_pre_step(self, batch: dict) -> dict:
+        """Fingerprint the step's micro-batches (before anything is added to
+        the batch) and consult the ``train.grads`` / ``data.batch`` seams; a
+        directive rides a ``__loss_mult__`` row that ``_micro_grads``
+        multiplies into the loss."""
+        gas = self.gas
+        lead = int(np.asarray(next(iter(batch.values()))).shape[0])
+        if lead % gas == 0:
+            # as the quarantining loaders see the micro-batches: the concatenation
+            # here and the split there give the same arrays
+            self._last_batch_fps = [
+                sentinel_mod.batch_fingerprint(
+                    {k: np.asarray(v).reshape((gas, lead // gas) + np.shape(v)[1:])[i]
+                     for k, v in batch.items()})
+                for i in range(gas)]
+        inj = self._fault_injector
+        if not inj.enabled:
+            return batch
+        directive = inj.fire(self._faults.POINT_TRAIN_GRADS)
+        if directive is None:
+            for fp in self._last_batch_fps:
+                directive = inj.fire(self._faults.POINT_DATA_BATCH, request_id=fp)
+                if directive is not None:
+                    break
+        if directive is None:
+            return batch
+        mult = float("nan") if directive == "nan-grads" else sentinel_mod.SPIKE_LOSS_MULT
+        log_dist(f"fault injection: {directive} directive at step {self.global_steps} "
+                 f"(loss x {mult})", ranks=[0])
+        return {**batch, "__loss_mult__": np.full((lead,), mult, np.float32)}
+
+    def _sentinel_post_step(self) -> None:
+        """Walk the ladder on this step's settled verdict (already on the host:
+        ``_update`` read it in the step's one sync)."""
+        pol, cfg, m = self._sentinel, self.config.sentinel, self._last_metrics
+        if not m.get("anomalous"):
+            pol.tick()
+            return
+        reason, streak = int(m["anomaly_reason"]), int(m["skip_streak"])
+        if (self.config.fp16.enabled and reason == sentinel_mod.REASON_NONFINITE
+                and streak < cfg.max_consecutive_skips):
+            # a routine fp16 overflow is the loss scaler's business
+            pol.tick()
+            return
+        names = sentinel_mod.reason_names(reason)
+        fps = list(self._last_batch_fps)
+        from deepspeed_tpu_torch.telemetry import TELEMETRY as tel
+
+        if tel.enabled:
+            ctr = tel.counter("sentinel_anomalies_total",
+                              "anomalous training steps flagged by the sentinel")
+            for n in names:
+                ctr.inc(reason=n)
+        tag = None
+        ckpt_dir = self._sentinel_ckpt_dir()
+        if ckpt_dir:
+            from deepspeed_tpu_torch.checkpoint.engine import latest_tag
+
+            tag = latest_tag(ckpt_dir)
+        action = pol.observe(reason, fps, latest_tag=tag)
+        self._apply_quarantine_to_loader()
+        ctx = {"global_steps": self.global_steps, "micro_steps": self.micro_steps,
+               "reason": names, "skip_streak": streak, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "fingerprints": fps,
+               "quarantined": list(pol.quarantined),
+               "strikes_in_window": pol.strikes_in_window, "action": action}
+        log_dist(f"sentinel: anomalous step {self.global_steps - 1} ({'+'.join(names)}; "
+                 f"update skipped) -> {action}", ranks=[0])
+        path = sentinel_mod.write_forensics(cfg.report_dir, action.replace("-", "_"), ctx)
+        if action == "rollback":
+            self._sentinel_rollback(ctx)
+        elif action == "reduce-lr":
+            self._lr_scale *= float(cfg.lr_backoff)
+            pol.lr_backoffs += 1
+            if tel.enabled:
+                tel.counter("sentinel_lr_backoffs_total",
+                            "sentinel third-strike LR reductions").inc()
+            log_dist(f"sentinel: third strike -> lr backoff x{cfg.lr_backoff:g} "
+                     f"(cumulative scale {self._lr_scale:g})", ranks=[0])
+        elif action == "halt":
+            raise sentinel_mod.DivergenceHaltError(
+                f"sentinel: third strike at step {self.global_steps - 1} "
+                f"({'+'.join(names)}) — halting per sentinel.on_third_strike='halt'",
+                report=path)
+
+    def _sentinel_ckpt_dir(self) -> str | None:
+        return self.config.sentinel.checkpoint_dir or self._last_save_dir
+
+    def _apply_quarantine_to_loader(self) -> None:
+        dl, pol = self.training_dataloader, self._sentinel
+        if pol is not None and pol.quarantined and dl is not None and hasattr(dl, "quarantine"):
+            dl.quarantine(pol.quarantined)
+
+    def _sentinel_rollback(self, ctx: dict) -> None:
+        """Restore the tag pinned at strike 1 and replay; the loader skips the
+        quarantined batches, so the stitched run is a clean run that never
+        saw them."""
+        pol, cfg = self._sentinel, self.config.sentinel
+        ckpt_dir, tag = self._sentinel_ckpt_dir(), pol.rollback_tag
+        if not ckpt_dir or tag is None:
+            path = sentinel_mod.write_forensics(cfg.report_dir, "halt", {
+                **ctx, "error": "rollback requested but no checkpoint is available"})
+            raise sentinel_mod.DivergenceHaltError(
+                "sentinel: rollback requested but no verified checkpoint is available "
+                "(set sentinel.checkpoint_dir or save one first)", report=path)
+        log_dist(f"sentinel: rolling back to checkpoint {tag!r}; replaying with quarantined "
+                 "batches skipped", ranks=[0])
+        t0 = time.perf_counter()
+        self.load_checkpoint(ckpt_dir, tag=tag)
+        self.last_rollback_s = time.perf_counter() - t0
+        pol.rollbacks += 1
+        self.train_rollbacks += 1
+        from deepspeed_tpu_torch.telemetry import TELEMETRY as tel
+
+        if tel.enabled:
+            tel.counter("train_rollbacks_total", "sentinel rollback-and-replay restores").inc()
+
+    def _handle_wedge(self, err) -> float:
+        """A dispatch fence past the deadline: forensics, then a rollback, or
+        a halt when the window's wedge budget or the checkpoints run out."""
+        pol, cfg = self._sentinel, self.config.sentinel
+        from deepspeed_tpu_torch.telemetry import TELEMETRY as tel
+
+        if tel.enabled:
+            tel.counter("train_wedge_timeouts_total",
+                        "training dispatch fences past the watchdog deadline").inc()
+        action = pol.observe_wedge()
+        ckpt_dir, tag = self._sentinel_ckpt_dir(), pol.rollback_tag
+        if ckpt_dir and tag is None:
+            from deepspeed_tpu_torch.checkpoint.engine import latest_tag
+
+            tag = latest_tag(ckpt_dir)
+        ctx = {"global_steps": self.global_steps, "micro_steps": self.micro_steps,
+               "reason": ["wedge"], "timeout_s": self._watchdog_timeout, "error": str(err),
+               "action": action}
+        path = sentinel_mod.write_forensics(cfg.report_dir, "wedge", ctx)
+        log_dist(f"sentinel: {err} -> {action}", ranks=[0])
+        if action == "rollback" and ckpt_dir and tag is not None:
+            pol.rollback_tag = tag
+            self._sentinel_rollback(ctx)
+            return float("nan")  # the wedged step's loss is unknowable
+        raise sentinel_mod.DivergenceHaltError(
+            f"sentinel: training dispatch wedged past {self._watchdog_timeout:g}s and no "
+            f"rollback is available (action {action!r})", report=path) from err
 
     # ------------------------------------------------------------ checkpoint
     def _rng_state_dict(self) -> dict:
@@ -518,6 +843,7 @@ class Engine:
 
         inj = faults.get_fault_injector()
         tag = str(tag or f"global_step{self.global_steps}")
+        self._last_save_dir = save_dir  # the sentinel's rollback target by default
         stage_dir = ckpt.staging_dir(save_dir, tag)
         world = self.topo.world_size
         manifest = {
@@ -689,41 +1015,10 @@ class Engine:
         if tag is None:
             log_dist(f"no checkpoint found under {load_dir}", ranks=[0])
             return None, {}
-        if not sharded.is_sharded(ckpt_dir, "model"):
-            raise ValueError(f"{ckpt_dir}: the legacy single-file layout is not ported; "
-                             "save it again with the JAX package's sharded format")
-
-        def paste(name, entries):
-            """entries: (key, shape, box, tensor) -> copy each box in place."""
-            got = sharded.load_sharded([(k, s, b, np.float32) for k, s, b, _ in entries],
-                                       ckpt_dir, name)
-            for key, _, _, t in entries:
-                t.copy_(torch.from_numpy(got[key]).to(self.device))
-
-        paste("model", [(k, lp.shape, self._holds(lp, lp.params_sharded)[1], p)
-                        for k, p, lp in zip(self._keys, self._leaves, self._lplan)])
-        if load_optimizer_states and sharded.is_sharded(ckpt_dir, "optimizer"):
-            fields = {}
-            entries = []
-            for prefix, name, value in self._state_fields():
-                if isinstance(value, list):
-                    entries += [(prefix + k, lp.shape, self._holds(lp, lp.state_sharded)[1], t)
-                                for k, t, lp in zip(self._keys, value, self._lplan)]
-                else:
-                    fields[name] = int(sharded.load_sharded(
-                        [(prefix, (), [], np.int64)], ckpt_dir, "optimizer")[prefix])
-            paste("optimizer", entries)
-            self.opt_state = self.opt_state._replace(**fields)
-            scale_kw = manifest.get("scale_state")
-            if scale_kw:
-                self.scale_state = precision.LossScaleState(
-                    scale=torch.tensor(float(scale_kw["scale"]), dtype=torch.float32,
-                                       device=self.device),
-                    good_steps=torch.tensor(int(scale_kw["good_steps"]), dtype=torch.int32,
-                                            device=self.device),
-                    hysteresis=torch.tensor(int(scale_kw["hysteresis"]), dtype=torch.int32,
-                                            device=self.device),
-                    dynamic=torch.tensor(bool(scale_kw["dynamic"]), device=self.device))
+        if sharded.is_sharded(ckpt_dir, "model"):
+            self._load_sharded_state(ckpt_dir, manifest, load_optimizer_states)
+        else:
+            self._load_legacy_state(ckpt_dir, load_optimizer_states)
         self.global_steps = int(manifest["global_steps"])
         self.global_samples = int(manifest["global_samples"])
         self.micro_steps = int(manifest["micro_steps"])
@@ -734,9 +1029,96 @@ class Engine:
         dl_state = manifest.get("dataloader_state")
         if dl_state is not None and hasattr(self.training_dataloader, "load_state_dict"):
             self.training_dataloader.load_state_dict(dl_state)
+        if self._sentinel is not None:
+            # the rolling stats describe a trajectory position that no longer
+            # exists: restart them, and re-skip the quarantined batches on the
+            # freshly positioned loader (the manifest predates the quarantine)
+            self._sent_state = sentinel_mod.init_state(self.config.sentinel, self.device)
+            self._apply_quarantine_to_loader()
+        self._acc_count = 0
         log_dist(f"loaded checkpoint {ckpt_dir} (saved at world_size="
                  f"{manifest['world_size']}, now {self.topo.world_size})", ranks=[0])
         return ckpt_dir, manifest.get("client_state", {})
+
+    def _opt_entries(self) -> tuple[list, list]:
+        """``(entries, scalars)`` of the optimizer state: ``(key, shape, box,
+        tensor)`` of each leaf this rank holds, and the scalar fields'
+        ``(key, name)``."""
+        entries, scalars = [], []
+        for prefix, name, value in self._state_fields():
+            if isinstance(value, list):
+                entries += [(prefix + k, lp.shape, self._holds(lp, lp.state_sharded)[1], t)
+                            for k, t, lp in zip(self._keys, value, self._lplan)]
+            else:
+                scalars.append((prefix, name))
+        return entries, scalars
+
+    def _model_entries(self) -> list:
+        return [(k, lp.shape, self._holds(lp, lp.params_sharded)[1], p)
+                for k, p, lp in zip(self._keys, self._leaves, self._lplan)]
+
+    def _load_sharded_state(self, ckpt_dir: str, manifest: dict, load_optimizer: bool) -> None:
+        from deepspeed_tpu_torch.checkpoint import sharded
+
+        def paste(name, entries):
+            """entries: (key, shape, box, tensor) -> copy each box in place."""
+            got = sharded.load_sharded([(k, s, b, np.float32) for k, s, b, _ in entries],
+                                       ckpt_dir, name)
+            for key, _, _, t in entries:
+                t.copy_(torch.from_numpy(got[key]).to(self.device))
+
+        paste("model", self._model_entries())
+        if load_optimizer and sharded.is_sharded(ckpt_dir, "optimizer"):
+            entries, scalars = self._opt_entries()
+            paste("optimizer", entries)
+            self.opt_state = self.opt_state._replace(**{
+                name: int(sharded.load_sharded([(key, (), [], np.int64)], ckpt_dir,
+                                               "optimizer")[key])
+                for key, name in scalars})
+            scale_kw = manifest.get("scale_state")
+            if scale_kw:
+                self._set_scale_state({k: scale_kw[k] for k in
+                                       ("scale", "good_steps", "hysteresis", "dynamic")})
+
+    def _load_legacy_state(self, ckpt_dir: str, load_optimizer: bool) -> None:
+        """The legacy single-file layout (``engine.py:3242-3275``): ``model.npz``
+        and ``optimizer.npz`` of full arrays by keystr, the loss scale's
+        fields under ``__scale__``; each rank pastes its boxes."""
+        names = ["model"] + (["optimizer"] if load_optimizer else [])
+        arrays = {n: ser.load_arrays(os.path.join(ckpt_dir, f"{n}.npz")) for n in names
+                  if os.path.exists(os.path.join(ckpt_dir, f"{n}.npz"))}
+
+        def paste(got, entries):
+            for key, shape, box, t in entries:
+                if key not in got:
+                    raise KeyError(f"checkpoint missing leaf {key}")
+                arr = got[key]
+                if tuple(arr.shape) != tuple(shape):
+                    raise ValueError(f"checkpoint leaf {key} shape {arr.shape} != expected "
+                                     f"{tuple(shape)}")
+                sl = tuple(slice(s, e) for s, e in box)
+                t.copy_(torch.from_numpy(np.ascontiguousarray(arr[sl], np.float32))
+                        .to(self.device))
+
+        paste(arrays["model"], self._model_entries())
+        opt = arrays.get("optimizer")
+        if opt is not None:
+            entries, scalars = self._opt_entries()
+            paste(opt, entries)
+            self.opt_state = self.opt_state._replace(**{name: int(opt[key])
+                                                        for key, name in scalars})
+            scale_kw = {k[len("__scale__"):]: v for k, v in opt.items()
+                        if k.startswith("__scale__")}
+            if scale_kw:
+                self._set_scale_state(scale_kw)
+
+    def _set_scale_state(self, kw: dict) -> None:
+        dev = self.device
+        self.scale_state = precision.LossScaleState(
+            scale=torch.tensor(float(kw["scale"]), dtype=torch.float32, device=dev),
+            good_steps=torch.tensor(int(kw["good_steps"]), dtype=torch.int32, device=dev),
+            hysteresis=torch.tensor(int(kw["hysteresis"]), dtype=torch.int32, device=dev),
+            dynamic=torch.tensor(bool(kw["dynamic"]), device=dev))
 
     def destroy(self) -> None:
         """Join an async checkpoint flush and uninstall the stage-3 gather

@@ -14,9 +14,11 @@ so a failing run replays exactly. The ragged engine fires every point on
 the host, before the program it guards is launched or replayed, never
 inside a captured CUDA graph.
 
-The checkpoint, training and pipeline points are carried as names only:
-the port's training engine fires none of them until ROADMAP.md queue 1
-item 10.
+The training engine fires the checkpoint points (``checkpoint/``,
+``Engine.save_checkpoint`` / ``load_checkpoint``) and the training points
+(``Engine.train_batch``: ``train.grads`` and ``data.batch`` before the
+step, whose directives multiply the loss, and ``train.dispatch`` after it).
+The pipeline point is carried as a name only (ROADMAP.md queue 1 item 12).
 
 Fault kinds: ``raise`` (:class:`FaultError`, or :class:`FatalFaultError`
 with ``fatal=True``), ``hang`` (sleep ``delay_s`` then ``TimeoutError``),
@@ -56,8 +58,7 @@ POINT_ALLOC = "engine.alloc"         # KV block allocation
 POINT_LOOP = "loop.step"             # engine-loop thread, once per busy tick
 POINT_SUBMIT = "router.submit"       # router→replica submit edge
 
-# Training checkpoint seams (named only: nothing in the port fires them until
-# ROADMAP.md queue 1 item 10). The file-mutating kinds (truncate /
+# Training checkpoint seams. The file-mutating kinds (truncate /
 # corrupt-bytes) act on the path each seam passes via ``fire(path=)``.
 POINT_CKPT_COLLECT = "ckpt.collect"  # device→host shard snapshot
 POINT_CKPT_FLUSH = "ckpt.flush"      # fragment/index writes into staging
@@ -65,7 +66,7 @@ POINT_CKPT_COMMIT = "ckpt.commit"    # manifest sealed, before dir promote
 POINT_CKPT_LATEST = "ckpt.latest"    # latest-pointer update
 POINT_CKPT_LOAD = "ckpt.load"        # load/verify entry
 
-# Training-step seams (named only, as above).
+# Training-step seams (``pipe.stage``: named only, item 12).
 POINT_TRAIN_DISPATCH = "train.dispatch"  # fused train step launch/fence
 POINT_TRAIN_GRADS = "train.grads"        # grad computation (transient anomaly)
 POINT_DATA_BATCH = "data.batch"          # batch admission (content-keyed)

@@ -74,12 +74,20 @@ def safe_get_full_optimizer_state(engine, name: str, state_name: str = "mu") -> 
     return _full(engine, values[i], i, engine._lplan[i].state_sharded)
 
 
+@torch.no_grad()
 def safe_get_full_grad(engine, name: str) -> np.ndarray | None:
-    """Accumulated gradient for a parameter, from the forward/backward
-    protocol's buffer. ``train_batch`` consumes its gradients within the
-    step, as the JAX engine's fused step does, so this is ``None`` after
-    it; the forward/backward protocol is not ported."""
-    if engine._acc_grads is None:
+    """The gradient ``backward()`` has accumulated for a parameter since the
+    last ``step()`` (the masters' ``.grad``, summed over the ranks, scaled
+    by the loss scale as the JAX engine's buffer is); ``None`` outside an
+    accumulation: ``train_batch`` consumes its gradients within the step,
+    as the JAX engine's fused step does."""
+    if not engine._acc_count:
         return None
+    from deepspeed_tpu_torch.comm.topology import AXIS_DATA
+
     i = _index(engine, name)
-    return _full(engine, engine._acc_grads[i], i, engine._lplan[i].grads_sharded)
+    p, lp = engine._leaves[i], engine._lplan[i]
+    g = p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+    # stage 3: the gather's backward reduce-scattered it over fsdp already
+    comm.all_reduce(g, AXIS_DATA if lp.params_sharded else (AXIS_DATA, AXIS_FSDP))
+    return _full(engine, g, i, lp.params_sharded)

@@ -125,7 +125,7 @@ def test_compute_dtype(section, want):
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "item 13"),
     ({"telemetry": {"enabled": True}}, "item 14"),
     ({"sequence_parallel": {"tiled_logits": True}}, "item 12"),
-    ({"sentinel": {"enabled": True}}, "item 10"),
+    ({"zero_optimization": {"quantized_gradients": True}}, "item 10"),
     ({"optimizer": {"type": "lion"}}, "item 15"),
     ({"optimizer": {"type": "onebit_adam"}}, "item 10"),
 ])

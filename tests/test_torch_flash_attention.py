@@ -25,6 +25,7 @@ from deepspeed_tpu.ops.pallas.flash_attention import (
 from deepspeed_tpu_torch.ops import attention as tattn
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 FWD_TOL = 2e-5
 BWD_TOL = 5e-5

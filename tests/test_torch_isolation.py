@@ -56,6 +56,13 @@ PORT_MODULES = (
     "deepspeed_tpu_torch.checkpoint.sharded",
     "deepspeed_tpu_torch.checkpoint.engine",
     "deepspeed_tpu_torch.utils.tensor_fragment",
+    "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.sentinel",
+    "deepspeed_tpu_torch.runtime.hybrid_engine",
+    "deepspeed_tpu_torch.runtime.chaos",
+    "deepspeed_tpu_torch.elasticity.elasticity",
+    "deepspeed_tpu_torch.elasticity.agent",
+    "deepspeed_tpu_torch.checkpoint.zero_to_fp32",
 )
 
 _PROBE = """

@@ -20,6 +20,7 @@ from deepspeed_tpu.ops.attention import apply_rope as jax_apply_rope
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from deepspeed_tpu_torch.ops.attention import apply_rope
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 CFG = dict(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,

@@ -16,6 +16,7 @@ from deepspeed_tpu.ops.pallas import paged_attention as jax_pallas
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.ops import attention as port_attention
 from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

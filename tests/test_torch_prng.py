@@ -15,6 +15,8 @@ JAX the reference runs on; the test asserts the mode, so a change in it
 fails here rather than skipping.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.utils import prng
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 SEEDS = (0, 1, 7, 0x5A3D1E, 2**31 - 1, 2**31 + 5, -1, 2**32 + 9)
 SHAPES = ((1,), (7,), (97,), (256,), (3, 11), (4, 97), (16, 256))
@@ -101,18 +104,29 @@ def test_gumbel_within_two_ulp():
         assert np.all(np.abs(got - want) <= 2 * ulp)
 
 
+@functools.partial(jax.jit, static_argnames="per_row")
+def _jax_categorical(key, i, logits, per_row):
+    """``jax.random.categorical`` with ``fold_in(key, i)``, one row a key
+    (folded with the row) or one key for all: one compile for the 256
+    draws, as the engines draw it inside their compiled programs."""
+    k = jax.random.fold_in(key, i)
+    if per_row:
+        keys = jax.vmap(lambda r: jax.random.fold_in(k, r))(jnp.arange(logits.shape[0]))
+        return jax.vmap(jax.random.categorical)(keys, logits)
+    return jax.random.categorical(k, logits, axis=-1)
+
+
 @pytest.mark.parametrize("per_row", (False, True), ids=("one_key", "per_row_keys"))
 def test_categorical_identical_over_256_keys(per_row):
     rng = np.random.default_rng(0)
     logits = (rng.standard_normal((8, 97)) * 2).astype(np.float32)
     jk, tk = _key(11)
+    jlogits = jnp.asarray(logits)
     for i in range(256):
-        jki, tki = jax.random.fold_in(jk, i), prng.fold_in(tk, i)
+        want = _jax_categorical(jk, i, jlogits, per_row=per_row)
+        tki = prng.fold_in(tk, i)
         if per_row:
-            jkeys = jax.vmap(lambda r: jax.random.fold_in(jki, r))(jnp.arange(8))
-            want = jax.vmap(jax.random.categorical)(jkeys, jnp.asarray(logits))
             got = prng.categorical(prng.fold_in(tki, torch.arange(8)), torch.from_numpy(logits))
         else:
-            want = jax.random.categorical(jki, jnp.asarray(logits), axis=-1)
             got = prng.categorical(tki, torch.from_numpy(logits))
         np.testing.assert_array_equal(np.asarray(want), got.numpy())

@@ -18,6 +18,7 @@ import torch
 from deepspeed_tpu.inference import sampling as jax_sampling
 from deepspeed_tpu_torch.inference import sampling
 from deepspeed_tpu_torch.utils import prng
+from torch_serving_common import one_torch_thread  # noqa: F401
 
 T, V = 6, 97
 LP_ATOL = 1e-5

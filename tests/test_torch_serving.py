@@ -263,8 +263,9 @@ def test_errors_and_debug_endpoints_match_reference():
 
 
 _CHILD = r"""
-import json, signal, sys, threading
+import json, sys
 import torch
+from deepspeed_tpu_torch.elasticity.agent import PreemptionHandler
 from deepspeed_tpu_torch.inference.ragged import RaggedConfig, RaggedInferenceEngine
 from deepspeed_tpu_torch.models import llama
 from deepspeed_tpu_torch.serving import RouterConfig, build_server
@@ -274,11 +275,13 @@ torch.set_num_threads(1)  # as the test files do: the pytest workers share the c
 eng = RaggedInferenceEngine(llama.build(llama.LlamaConfig(**cfg)), RaggedConfig(**rcfg),
                             dtype=torch.float32, seed=0, device="cpu")
 fe, router, loops = build_server([eng], router_cfg=RouterConfig(max_queue_tokens=4096))
-drained = threading.Event()
-signal.signal(signal.SIGTERM, lambda *_: (router.begin_drain(), drained.set()))
+handler = PreemptionHandler()  # SIGTERM: stop admitting at once (a flag flip)
+fe.install_preemption_handler(handler)
 print("PORT " + json.dumps(fe.port), flush=True)
-while not drained.wait(0.02):  # short waits: the handler runs between them
+while not handler.stop_event.wait(0.02):  # short waits: the handler runs between them
     pass
+handler.drain()
+handler.restore()
 ok = all(lp.join(timeout=120) for lp in loops)
 fe.close()
 alloc = eng.allocator
@@ -296,8 +299,10 @@ def _child_line(child, tag):
 
 
 def test_sigterm_drain_in_child_process():
-    """SIGTERM to a serving child process: it stops admitting at once
-    (503 for new work and /healthz) and finishes the requests in flight."""
+    """SIGTERM to a serving child process, through the port's
+    ``PreemptionHandler`` (``install_preemption_handler``): it stops
+    admitting at once (503 for new work and /healthz) and finishes the
+    requests in flight."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo)
     child = subprocess.Popen([sys.executable, "-c", _CHILD, json.dumps(CFG),

@@ -133,7 +133,13 @@ def jax_drive(mode: str) -> dict:
     """The JAX engine's run in ``mode`` with ``TIER``: ``drive`` (``phases``),
     then, on the same engine, its own handoff records of uids hg, hs
     (``records``, after a prefix hit) and the tokens it resumes from the
-    port's records (``resumed``), with its block counts."""
+    port's records (``resumed``), with its block counts. Computed once a
+    test run (tests/test_torch_handoff.py, test_torch_kvtier.py and
+    test_torch_prefix_cache.py each ask for every mode)."""
+    return common.shared(_jax_drive, mode)
+
+
+def _jax_drive(mode: str) -> dict:
     with tempfile.TemporaryDirectory() as d:
         eng = jax_engine({**MODES[mode], **TIER, "kv_tier_dir": d})
         try:
